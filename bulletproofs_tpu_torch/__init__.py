@@ -1,15 +1,22 @@
 """bulletproofs_tpu_torch: the PyTorch and CUDA port of bulletproofs_tpu.
 
-It holds the device Pippenger MSM for G1 (`msm`, `msm_hybrid`),
-whose EC work runs in hand-written CUDA kernels for Hopper
-(`ops/ec_kernels.py`, `csrc/ec_kernels.cu`), and the exact-int host types it
-is checked against.  The package imports neither JAX nor bulletproofs_tpu.
+It holds the device Pippenger MSM for G1 (`msm`, `msm_hybrid`), whose EC
+work runs in hand-written CUDA kernels for Hopper (`ops/ec_kernels.py`,
+`csrc/ec_kernels.cu`), the standalone inner-product argument built on it
+(`create_ipp`, `verify_ipp`), its Fiat-Shamir transcript, and the exact-int
+host types it is checked against.  The package imports neither JAX nor
+bulletproofs_tpu.
 """
 
 from .config import BLS381, BN254, curve, set_curve, using_curve
+from .ipp import InnerProductArgumentProof, create_ipp, verify_ipp
 from .ops.ec_host import G1, msm_host
 from .ops.field_host import Scalar
 from .ops.msm import msm, msm_hybrid
+from .transcript import ProofTranscript
+from .utils.generators import get_generators
 
-__all__ = ["BLS381", "BN254", "G1", "Scalar", "curve", "msm", "msm_host",
-           "msm_hybrid", "set_curve", "using_curve"]
+__all__ = ["BLS381", "BN254", "G1", "InnerProductArgumentProof",
+           "ProofTranscript", "Scalar", "create_ipp", "curve",
+           "get_generators", "msm", "msm_host", "msm_hybrid", "set_curve",
+           "using_curve", "verify_ipp"]

@@ -31,6 +31,7 @@ SIGNATURES = {
     "bp_bucket_rounds_mixed": (_P, _P, _P, _I, _I, _I, _P, _P),
     "bp_bucket_rounds_proj": (_P, _P, _P, _I, _I, _I, _P, _P),
     "bp_ec_add": (_P, _P, _P, _LL, _I, _P, _P),
+    "bp_bucket_round_add": (_P, _P, _P, _I, _I, _P, _P),
 }
 
 

@@ -14,11 +14,14 @@ These are the plain versions.  The MSM reaches them through the wrappers of
 `ops/ec_kernels.py`, which launch the CUDA kernels for tensors on the card.
 """
 
+import hashlib
+
 import numpy as np
 import torch
 
 from ..config import CurveParams
 from .ec_host import G1
+from .field_host import Scalar
 from .field import (FieldCtx, add_mod, from_mont, ints_to_limbs,
                     limbs_to_ints, mont_mul, mul_small, sub_mod)
 
@@ -224,9 +227,43 @@ def to_device_scalars(scalars, ctx: CurveCtx, device="cuda"):
     return torch.as_tensor(ints_to_limbs(vals, ctx.fr.L), device=device)
 
 
+def content_digest(points, ctx: CurveCtx):
+    """Collision-resistant digest of a point vector's FULL projective
+    content (curve, length, every X/Y/Z coordinate): the key of the
+    point-table cache, so a table is never reused for different points
+    (the JAX package's `ops/jax_backend.py: content_digest`)."""
+    h = hashlib.blake2b(digest_size=16)
+    nb = (ctx.cv.p.bit_length() + 7) // 8
+    h.update(ctx.cv.name.encode())
+    h.update(len(points).to_bytes(8, "little"))
+    for p in points:
+        h.update(p.X.to_bytes(nb, "little"))
+        h.update(p.Y.to_bytes(nb, "little"))
+        h.update(p.Z.to_bytes(nb, "little"))
+    return h.digest()
+
+
 # ---------------------------------------------------------------------------
-# Arrays of the JAX package (uint32 16-bit limbs) <-> the port's tensors
+# Objects and arrays of the JAX package <-> the port's
 # ---------------------------------------------------------------------------
+
+def from_jax_host(obj, cv: CurveParams):
+    """The JAX package's host objects as the port's: a `G1` (read through
+    X, Y, Z), a `Scalar` (v), an `InnerProductArgumentProof` (L, R, a, b)
+    or a list or tuple of these.  Reads attributes only."""
+    if isinstance(obj, (list, tuple)):
+        return [from_jax_host(o, cv) for o in obj]
+    if all(hasattr(obj, k) for k in ("L", "R", "a", "b")):
+        from ..ipp import InnerProductArgumentProof
+        return InnerProductArgumentProof(
+            L=from_jax_host(obj.L, cv), R=from_jax_host(obj.R, cv),
+            a=from_jax_host(obj.a, cv), b=from_jax_host(obj.b, cv))
+    if all(hasattr(obj, k) for k in ("X", "Y", "Z")):
+        return G1(obj.X, obj.Y, obj.Z, cv)
+    if hasattr(obj, "v"):
+        return Scalar(obj.v, cv)
+    raise TypeError(f"from_jax_host: no port type for {type(obj).__name__}")
+
 
 def from_jax_points(arr, device="cuda"):
     """JAX package point array (3, L, *batch) uint32 Montgomery limbs (as

@@ -1,4 +1,4 @@
-"""The three CUDA kernels of the MSM path (`csrc/ec_kernels.cu`): their
+"""The four CUDA kernels of the MSM path (`csrc/ec_kernels.cu`): their
 wrappers, their plain PyTorch versions and their launch counts.
 
 | wrapper               | replaces (bulletproofs_tpu/ops/ec_pallas.py)     |
@@ -6,6 +6,7 @@ wrappers, their plain PyTorch versions and their launch counts.
 | `bucket_rounds_mixed` | `bucket_rounds_chunk_pallas_mixed` (:425)        |
 | `bucket_rounds_proj`  | `bucket_rounds_chunk_pallas` (:355)              |
 | `ec_add`              | `ec_add_pallas` (:499)                           |
+| `bucket_round_add`    | `bucket_round_add_pallas` (:469)                 |
 
 A wrapper takes and returns the port's int64 16-bit limb tensors.  For a
 tensor on the CPU it runs the plain version; for a CUDA tensor it packs the
@@ -22,9 +23,10 @@ import torch
 
 from . import build
 from .ec import CurveCtx, ec_add as ec_add_plain, ec_madd
-from .field import pack32, unpack32
+from .field import mont_mul, pack32, unpack32
 
-launches = {"bucket_rounds_mixed": 0, "bucket_rounds_proj": 0, "ec_add": 0}
+launches = {"bucket_rounds_mixed": 0, "bucket_rounds_proj": 0, "ec_add": 0,
+            "bucket_round_add": 0}
 
 
 def reset_launches():
@@ -80,8 +82,22 @@ def _check_rounds(buckets, rows, found, width, ctx):
         raise ValueError("buckets, rows and found must share a device")
 
 
+def _check_round(buckets, rows, found, ctx):
+    L = ctx.fp.L
+    if buckets.dtype != torch.int64 or buckets.shape[:2] != (3, L) \
+            or buckets.ndim != 3:
+        raise ValueError(f"buckets must be (3, {L}, S) int64, got "
+                         f"{tuple(buckets.shape)} {buckets.dtype}")
+    S = buckets.shape[2]
+    if found.shape != (S,) or rows.shape != (S, 3 * L):
+        raise ValueError(f"rows {tuple(rows.shape)} / found "
+                         f"{tuple(found.shape)} do not fit S = {S}")
+    if rows.device != buckets.device or found.device != buckets.device:
+        raise ValueError("buckets, rows and found must share a device")
+
+
 def pack_rounds(buckets, rows, found):
-    """The bucket-rounds kernels' operands in their own layout: 32-bit
+    """The bucket-round kernels' operands in their own layout: 32-bit
     words (`pack32`), contiguous, and `found` as int32."""
     return (pack32(buckets, 1).contiguous(), pack32(rows, 1).contiguous(),
             found.to(torch.int32).contiguous())
@@ -114,6 +130,15 @@ def bucket_rounds_proj32(acc32, rows32, found32, ctx: CurveCtx):
                    rows32, found32, ctx)
 
 
+def bucket_round_add32(acc32, rows32, found32, ctx: CurveCtx):
+    """Kernel 4 on operands already packed by `pack_rounds`: acc32
+    (3, NL, S) is updated in place by one round."""
+    _require_card("bucket_round_add", ctx, acc32, rows32, found32)
+    _launch("bp_bucket_round_add", "bucket_round_add", acc32.data_ptr(),
+            rows32.data_ptr(), found32.data_ptr(), found32.shape[0],
+            ctx.fp.L // 2, _consts(ctx).ctypes.data)
+
+
 def ec_add32(P32, Q32, ctx: CurveCtx):
     """Kernel 3 on packed (3, NL, n) int32 operands -> packed P + Q."""
     _require_card("ec_add", ctx, P32, Q32)
@@ -135,11 +160,11 @@ def bucket_rounds_mixed_plain(buckets, rows, found, ctx: CurveCtx):
     algorithm 8); an empty slot keeps its accumulator."""
     L = ctx.fp.L
     S = buckets.shape[2]
-    acc = buckets
+    acc = buckets.clone()
     for r in range(found.shape[0]):
-        delta = rows[r * S:(r + 1) * S].reshape(S, 2, L).permute(1, 2, 0)
-        acc = torch.where((found[r] != 0)[None, None],
-                          ec_madd(acc, delta, ctx), acc)
+        live = torch.nonzero(found[r]).squeeze(1)   # only these slots add
+        delta = rows[r * S + live].reshape(-1, 2, L).permute(1, 2, 0)
+        acc[:, :, live] = ec_madd(acc[:, :, live], delta, ctx)
     return acc
 
 
@@ -204,3 +229,39 @@ def ec_add(P, Q, ctx: CurveCtx):
     out = ec_add32(pack32(P.reshape(3, ctx.fp.L, n), 1).contiguous(),
                    pack32(Q.reshape(3, ctx.fp.L, n), 1).contiguous(), ctx)
     return unpack32(out, 1).reshape(P.shape)
+
+
+# ---------------------------------------------------------------------------
+# Kernel 4: one bucket round, projective rows, complete add
+# ---------------------------------------------------------------------------
+
+def bucket_round_add_plain(buckets, rows, found, ctx: CurveCtx):
+    """buckets (3, L, S); rows (S, 3L) projective; found (S,) -> buckets
+    after one round of the complete add (RCB16 algorithm 7): every slot
+    adds its row, or the identity (0 : 1 : 0) where found is 0 -- the
+    function of `ec_pallas._round_kernel`.
+
+    Algorithm 7 (and algorithm 1) with (X2, Y2, Z2) = (0, 1, 0) reduces to
+    (X1*Y1 : Y1*Y1 : Z1*Y1): every other product is zero, and the field ops
+    are exact.  So the empty slots, most of them in a sparse round, take
+    one product instead of the whole add, with the same limbs."""
+    S = buckets.shape[2]
+    delta = rows.reshape(S, 3, ctx.fp.L).permute(1, 2, 0)
+    live = torch.nonzero(found).squeeze(1)
+    idle = torch.nonzero(found == 0).squeeze(1)
+    out = torch.empty_like(buckets)
+    out[:, :, live] = ec_add_plain(buckets[:, :, live], delta[:, :, live],
+                                   ctx)
+    P = buckets[:, :, idle].transpose(0, 1)          # (L, 3, k)
+    out[:, :, idle] = mont_mul(P, P[:, 1:2], ctx.fp).transpose(0, 1)
+    return out
+
+
+def bucket_round_add(buckets, rows, found, ctx: CurveCtx):
+    """Kernel 4 (`bp_bucket_round_add`); see `bucket_round_add_plain`."""
+    _check_round(buckets, rows, found, ctx)
+    if not _on_card(buckets, "bucket_round_add", ctx):
+        return bucket_round_add_plain(buckets, rows, found, ctx)
+    acc32, rows32, found32 = pack_rounds(buckets, rows, found)
+    bucket_round_add32(acc32, rows32, found32, ctx)
+    return unpack32(acc32, 1)

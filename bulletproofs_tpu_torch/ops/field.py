@@ -126,6 +126,8 @@ class FieldCtx:
 def _bcast(a, b):
     """Broadcast two limbs-first operands: trailing batch dims are aligned
     right AFTER the leading limb axis."""
+    if a.shape == b.shape:
+        return a, b
     nd = max(a.ndim, b.ndim)
     a = a.reshape(a.shape[:1] + (1,) * (nd - a.ndim) + a.shape[1:])
     b = b.reshape(b.shape[:1] + (1,) * (nd - b.ndim) + b.shape[1:])
@@ -134,27 +136,68 @@ def _bcast(a, b):
 
 
 # ---------------------------------------------------------------------------
-# Carry / borrow chains (sequential in limb index, full-batch-wide per step)
+# Carry / borrow chains, vectorized over the limb axis
+#
+# A chain over limbs, where each limb either generates a carry (borrow),
+# passes the incoming one on, or absorbs it, is resolved the way a binary
+# adder resolves its carries: with one bit per limb the chain is the carry
+# pattern of the int64 sum X + Y, X holding the limbs that generate or
+# pass on and Y those that generate (at most 63 limbs).  A dozen
+# whole-tensor ops replace ~8 per limb.
 # ---------------------------------------------------------------------------
 
-def _carry_sub_norm(cols, m, out_len):
-    """Carry-normalize relaxed columns and subtract m (L', 1) once if the
-    value is >= m: one pass computes the limbs and the borrow chain of
-    (value - m); the select happens at the end."""
-    norm_l, diff_l = [], []
-    carry = torch.zeros_like(cols[0])
-    borrow = torch.zeros_like(cols[0])
-    for k in range(out_len):
-        s = cols[k] + carry if k < cols.shape[0] else carry
-        limb = s & LIMB_MASK
-        mk = m[k] if k < m.shape[0] else 0
-        t = limb - mk - borrow
-        norm_l.append(limb)
-        diff_l.append(t & LIMB_MASK)
-        carry = s >> LIMB_BITS
-        borrow = (t < 0).to(I64)
-    norm = torch.stack(norm_l, dim=0)
-    diff = torch.stack(diff_l, dim=0)
+def _limbs_first(c, ndim):
+    """An (L, 1) constant shaped to broadcast against (L, *batch) limbs of
+    `ndim` dims."""
+    return c.reshape((c.shape[0],) + (1,) * (ndim - 1)) if c.ndim < ndim \
+        else c
+
+
+def _chain(gen, prop):
+    """gen, prop (K, *batch) bool, never both true at one limb -> (K+1,
+    *batch) int64: the carry into limbs 0..K-1 and, last, out of the top."""
+    K = gen.shape[0]
+    bit = torch.arange(K + 1, device=gen.device).reshape(
+        (K + 1,) + (1,) * (gen.ndim - 1))
+    Y = (gen.to(I64) << bit[:K]).sum(0)
+    X = Y + (prop.to(I64) << bit[:K]).sum(0)
+    carries = (X + Y) ^ X ^ Y
+    return (carries.unsqueeze(0) >> bit) & 1
+
+
+def _normalize(cols, out_len, bound):
+    """Relaxed non-negative columns (K, *batch), each <= bound, whose value
+    fits in out_len limbs -> exactly that value in out_len 16-bit limbs
+    (K <= out_len)."""
+    if cols.shape[0] < out_len:
+        cols = torch.cat([cols, cols.new_zeros(
+            (out_len - cols.shape[0],) + cols.shape[1:])], dim=0)
+    zero = cols.new_zeros((1,) + cols.shape[1:])
+    while bound > LIMB_MASK + 1:       # split columns until carries are 0/1
+        cols = (cols & LIMB_MASK) + torch.cat(
+            [zero, cols[:-1] >> LIMB_BITS], dim=0)
+        bound = LIMB_MASK + (bound >> LIMB_BITS)
+    carry = _chain(cols > LIMB_MASK, cols == LIMB_MASK)
+    return (cols + carry[:-1]) & LIMB_MASK
+
+
+def _sub_limbs(x, m):
+    """x - m limb by limb, x (K, *batch) and m (K', 1..) 16-bit limbs with
+    K' <= K -> (difference mod 2^(16K) as limbs, borrow out of the top)."""
+    m = _limbs_first(m, x.ndim)
+    if m.shape[0] < x.shape[0]:
+        m = torch.cat([m, m.new_zeros((x.shape[0] - m.shape[0],)
+                                      + m.shape[1:])], dim=0)
+    d = x - m
+    borrow = _chain(d < 0, d == 0)
+    return (d - borrow[:-1]) & LIMB_MASK, borrow[-1]
+
+
+def _carry_sub_norm(cols, m, out_len, bound):
+    """Carry-normalize relaxed columns (each <= bound) and subtract m
+    (L', 1) once if the value is >= m."""
+    norm = _normalize(cols, out_len, bound)
+    diff, borrow = _sub_limbs(norm, m)
     return torch.where((borrow == 0).unsqueeze(0), diff, norm)
 
 
@@ -164,25 +207,15 @@ def _carry_sub_norm(cols, m, out_len):
 
 def add_mod(a, b, ctx: FieldCtx):
     a, b = _bcast(a, b)
-    return _carry_sub_norm(a + b, ctx.on("mod", a.device), ctx.L + 1)[:ctx.L]
+    return _carry_sub_norm(a + b, ctx.on("mod", a.device), ctx.L + 1,
+                           2 * LIMB_MASK)[:ctx.L]
 
 
 def sub_mod(a, b, ctx: FieldCtx):
     a, b = _bcast(a, b)
-    mod = ctx.on("mod", a.device)
-    diff_l, fixed_l = [], []
-    borrow = torch.zeros_like(a[0])
-    carry = torch.zeros_like(a[0])
-    for k in range(ctx.L):
-        t = a[k] - b[k] - borrow
-        d = t & LIMB_MASK
-        borrow = (t < 0).to(I64)
-        s = d + mod[k] + carry
-        carry = s >> LIMB_BITS
-        diff_l.append(d)
-        fixed_l.append(s & LIMB_MASK)
-    diff = torch.stack(diff_l, dim=0)
-    fixed = torch.stack(fixed_l, dim=0)
+    diff, borrow = _sub_limbs(a, b)
+    mod = _limbs_first(ctx.on("mod", a.device), a.ndim)
+    fixed = _normalize(diff + mod, ctx.L + 1, 2 * LIMB_MASK)[:ctx.L]
     return torch.where((borrow == 1).unsqueeze(0), fixed, diff)
 
 
@@ -208,8 +241,9 @@ def mont_mul(a, b, ctx: FieldCtx):
         m = ((t[i] & LIMB_MASK) * ctx.n0inv) & LIMB_MASK
         t[i:i + L].addcmul_(mod, m.unsqueeze(0))
         t[i + 1] += t[i] >> LIMB_BITS
-    # t[L:] = (a*b + m*p) / R < 2p as relaxed columns
-    return _carry_sub_norm(t[L:], ctx.on("mod", a.device), L + 1)[:L]
+    # t[L:] = (a*b + m*p) / R < 2p as relaxed columns below 2^40
+    return _carry_sub_norm(t[L:], ctx.on("mod", a.device), L + 1,
+                           (1 << 40) - 1)[:L]
 
 
 def mul_small(a, k: int, ctx: FieldCtx):

@@ -1,8 +1,9 @@
 """Host scalar field F_r: the port's own copy of `Scalar` from
 `bulletproofs_tpu/ops/field_host.py`, over exact Python integers.
 
-Only what the MSM and its tests need is kept: construction, reduction,
-byte conversion and the ring operations.
+Only what the MSM, the IPA and their tests need is kept: construction,
+reduction, byte conversion, the ring operations and the vector helpers
+`inner_product`, `hadamard_product` and `batch_invert`.
 """
 
 import hashlib
@@ -149,3 +150,46 @@ def _val(o):
     if isinstance(o, int):
         return o
     return NotImplemented
+
+
+def inner_product(a, b):
+    """<a, b> over F_r. Mirrors FieldElementVector::inner_product."""
+    if len(a) != len(b):
+        raise ValueError("inner_product of vectors of unequal length")
+    if not a:
+        return Scalar.zero()
+    r = a[0].cv.r
+    return Scalar(sum(x.v * y.v for x, y in zip(a, b)) % r, a[0].cv)
+
+
+def hadamard_product(a, b):
+    if len(a) != len(b):
+        raise ValueError("hadamard_product of vectors of unequal length")
+    return [x * y for x, y in zip(a, b)]
+
+
+def batch_invert(elems):
+    """Montgomery batched inversion.
+
+    Returns (inverses, product_of_all_inverses) -- the same pair as
+    amcl_wrapper's `FieldElement::batch_invert` consumed at `ipp.rs:295`.
+    """
+    if not elems:
+        # Empty product convention: no inverses, product == 1
+        # (n == 1 IPA has zero rounds and s == [1]).
+        return [], Scalar.one()
+    cv = elems[0].cv
+    r = cv.r
+    n = len(elems)
+    prefix = [1] * (n + 1)
+    for i, e in enumerate(elems):
+        if e.v == 0:
+            raise ZeroDivisionError("batch_invert of zero")
+        prefix[i + 1] = (prefix[i] * e.v) % r
+    inv_all = pow(prefix[n], -1, r)
+    out = [None] * n
+    acc = inv_all
+    for i in range(n - 1, -1, -1):
+        out[i] = Scalar(acc * prefix[i], cv)
+        acc = (acc * elems[i].v) % r
+    return out, Scalar(inv_all, cv)

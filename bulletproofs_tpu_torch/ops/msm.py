@@ -10,7 +10,8 @@ CUDA kernels of `ops/ec_kernels.py`.
    are spread over sub-buckets and duplicate rows (`window_plan`).
 3. **Bucket rounds**: R_c rounds per kernel launch, accumulators resident in
    registers (`bucket_rounds_mixed` for affine tables, `bucket_rounds_proj`
-   after pre-reduction passes).
+   after pre-reduction passes), or, with `ec_kernel="round"`, one launch
+   of `bucket_round_add` per round.
 4. **Combine**: sub-bucket and duplicate-row folds, the two-level row/column
    sums and the weighted running sums, all through the batched `ec_add`
    kernel, give one total per window; the window Horner runs on the host in
@@ -34,10 +35,15 @@ from . import field as fd
 from .ec import (CurveCtx, from_device_points, to_device_points_affine,
                  to_device_scalars)
 from .ec_host import G1
-from .ec_kernels import bucket_rounds_mixed, bucket_rounds_proj, ec_add
+from .ec_kernels import (bucket_round_add, bucket_rounds_mixed,
+                         bucket_rounds_proj, ec_add)
 
 # Rounds per bucket-kernel launch (the JAX package's BP_EC_CHUNK default).
 EC_CHUNK = 16
+
+# Forms of the bucket pass (the JAX package's BP_EC_KERNEL=pallas and
+# pallas_round): R_c rounds per launch, or one launch per round.
+EC_KERNELS = ("chunk", "round")
 
 
 def _chunk_rounds(n_rounds):
@@ -294,7 +300,8 @@ def _pre_reduce_rows(points, sorted_d, rank, perm, ctx, pre_reduce):
 
 
 def bucket_accumulate(points, digits, ctx: CurveCtx, c: int, n_rounds,
-                      plan=None, pre_reduce=0, affine=False):
+                      plan=None, pre_reduce=0, affine=False,
+                      ec_kernel="chunk"):
     """points (3, L, n) Montgomery, digits (W, n) -> (buckets (3, L, W, B),
     occ), occ the true max occupancy under `plan` after `pre_reduce` passes.
 
@@ -306,7 +313,14 @@ def bucket_accumulate(points, digits, ctx: CurveCtx, c: int, n_rounds,
     pre_reduce: halving passes (`_pre_reduce_rows`) that tame degenerate
     scalar distributions such as bit vectors, at W*n batched adds a pass.
     affine: the table has Z == 1 everywhere, so without pre-reduction the
-    rounds use the mixed-add kernel on (X, Y) rows."""
+    chunked rounds use the mixed-add kernel on (X, Y) rows.
+    ec_kernel: "chunk" runs EC_CHUNK rounds per launch of kernel 1 or 2;
+    "round" runs one launch of kernel 4 (`bucket_round_add`) per round on
+    projective rows, affine table or not, as the JAX package's per-round
+    branch does."""
+    if ec_kernel not in EC_KERNELS:
+        raise ValueError(f"ec_kernel must be one of {EC_KERNELS}, got "
+                         f"{ec_kernel!r}")
     B = 1 << c
     L = points.shape[1]
     n = points.shape[2]
@@ -322,6 +336,8 @@ def bucket_accumulate(points, digits, ctx: CurveCtx, c: int, n_rounds,
         digits = _spread_dup_rows(digits, dup_plan)
     W = digits.shape[0]
 
+    mixed = (affine and pre_reduce == 0 and ctx.a_is_zero
+             and ec_kernel == "chunk")
     w_off = None
     if pre_reduce:
         sorted_d, rank, perm = _sorted_ranks(digits)
@@ -339,13 +355,11 @@ def bucket_accumulate(points, digits, ctx: CurveCtx, c: int, n_rounds,
         grid, found, occ = _slot_grid(digits, B, n_rounds, ranges, splits)
         if occ > n_rounds:
             return None, occ
-        table = points[:2] if affine else points
+        table = points[:2] if mixed else points
         points_rows = table.permute(2, 0, 1).reshape(n, table.shape[0] * L)
 
-    mixed = affine and pre_reduce == 0 and ctx.a_is_zero
-    rounds_kernel = bucket_rounds_mixed if mixed else bucket_rounds_proj
     S = W * B
-    R_c = _chunk_rounds(n_rounds)
+    R_c = 1 if ec_kernel == "round" else _chunk_rounds(n_rounds)
     grid_c = grid.reshape(n_rounds // R_c, R_c, W, B)
     found_c = found.reshape(n_rounds // R_c, R_c, S).to(torch.int32)
     buckets = ctx.identity_like((S,), dev)
@@ -354,7 +368,12 @@ def bucket_accumulate(points, digits, ctx: CurveCtx, c: int, n_rounds,
         if w_off is not None:
             pid = pid + w_off
         rows = points_rows[pid.reshape(-1)]          # (R_c*S, 2L | 3L)
-        buckets = rounds_kernel(buckets, rows, found_c[ci], ctx)
+        if ec_kernel == "round":
+            buckets = bucket_round_add(buckets, rows, found_c[ci, 0], ctx)
+        elif mixed:
+            buckets = bucket_rounds_mixed(buckets, rows, found_c[ci], ctx)
+        else:
+            buckets = bucket_rounds_proj(buckets, rows, found_c[ci], ctx)
     buckets = buckets.reshape(3, L, W, B)
     if plan is not None:
         buckets = fold_split_buckets(buckets, ctx, ranges, splits)
@@ -434,16 +453,17 @@ def _digits_multi(scalars, ctx, c):
 
 
 def msm_totals(points, scalars, ctx: CurveCtx, c: int, n_rounds,
-               pre_reduce=0, affine=False):
+               pre_reduce=0, affine=False, ec_kernel="chunk"):
     """S scalar sets against one point table in ONE bucket pass (the port
     of `_msm_multi_totals_jit`): points (3, L, n) Montgomery, scalars
     (S, Lr, n) plain -> (per-window totals (3, L, S*W) in PLAIN form, occ).
-    Totals are None when occ > n_rounds (see `bucket_accumulate`)."""
+    Totals are None when occ > n_rounds (see `bucket_accumulate`, which
+    also says what `ec_kernel` selects)."""
     digits = _digits_multi(scalars, ctx, c)
     plan = window_plan(ctx, c, n_sets=scalars.shape[0], dup=True)
     buckets, occ = bucket_accumulate(points, digits, ctx, c, n_rounds,
                                      plan=plan, pre_reduce=pre_reduce,
-                                     affine=affine)
+                                     affine=affine, ec_kernel=ec_kernel)
     if buckets is None:
         return None, occ
     rowsum, colsum = bucket_rowcol(buckets, ctx, c)
@@ -465,7 +485,7 @@ def _horner(totals, cv, c):
 
 
 def msm_hybrid(points_dev, scalars_multi, ctx: CurveCtx, c: int = None,
-               n_eff: int = None, affine: bool = False):
+               n_eff: int = None, affine: bool = False, ec_kernel="chunk"):
     """Multi-set MSM, the device Pippenger with the serial Horner tail on
     the host: points (3, L, n) Montgomery and scalars (S, Lr, n) plain, both
     on one device -> list of S host G1 results.
@@ -473,7 +493,8 @@ def msm_hybrid(points_dev, scalars_multi, ctx: CurveCtx, c: int = None,
     The round count starts from the last successful escalation for this
     shape (`_escalation_memo`): bit-vector scalars need pre-reduction every
     time.  n_eff: a bound on the non-zero scalars per set, which tightens
-    the round guess."""
+    the round guess.  ec_kernel: the form of the bucket pass, "chunk" or
+    "round" (`bucket_accumulate`); the results are equal."""
     n = points_dev.shape[2]
     S = scalars_multi.shape[0]
     if c is None:
@@ -484,7 +505,7 @@ def msm_hybrid(points_dev, scalars_multi, ctx: CurveCtx, c: int = None,
         key, (occupancy_guess(n_eff or n, ctx, c), 0))
     while True:
         totals, occ = msm_totals(points_dev, scalars_multi, ctx, c, rounds,
-                                 pre, affine)
+                                 pre, affine, ec_kernel)
         if totals is not None:
             break
         rounds, pre = _escalate(occ, rounds, pre)

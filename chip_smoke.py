@@ -1,17 +1,18 @@
 """Drive the PyTorch/CUDA port on one NVIDIA card: build its kernels, hold
 each kernel against its plain PyTorch version, and run the n = 2^16 device
-Pippenger MSM of BLS12-381 G1 end to end.
+Pippenger MSM and the n = 2^16 inner-product argument (prove and verify) of
+BLS12-381 G1 end to end.
 
     python3 chip_smoke.py [--seed S] [--n N]
 
 Phases, each printing one JSON line with its seconds:
   0 device   the card's name and power limit (nvidia-smi);
   1 build    nvcc of csrc/ec_kernels.cu into a ctypes library;
-  2 kernels  each kernel against its plain version at the MSM's full width
-             (bit-exact), with the bare kernel's time on operands packed
-             beforehand (`ms`), the wrapper's time with its 16/32-bit limb
-             packing (`wrapper_ms`), the plain version's time and the card's
-             bound for the same work;
+  2 kernels  each kernel against its plain version at the width each path
+             gives it (bit-exact), with the bare kernel's time on operands
+             packed beforehand (`ms`), the wrapper's time with its 16/32-bit
+             limb packing (`wrapper_ms`), the plain version's time and the
+             card's bound for the same work;
   3 msm_uniform    n random-scalar MSM (the bench's input: 256 base points
                    repeated) through `msm_hybrid`, 1 + 3 runs, and through
                    `msm_device` (the path of the public `msm`), 1 + 3 runs,
@@ -19,7 +20,15 @@ Phases, each printing one JSON line with its seconds:
   4 msm_bitvector  n scalars in {0, 1}, the same two paths: escalates to
                    pre-reduction, so the projective bucket kernel and the
                    batched add run too;
-  5 kernels  launch counts of phases 3-4, each required > 0.
+  5 ipa      the standalone IPA at n (the bench's config 3: 256 hash-derived
+             G and H bases repeated to n, unit factors): prove 1 + 3 times
+             with the chunked bucket kernels, the per-stage seconds of one
+             more proof, a host check of the proof in Python ints that does
+             not use the device verifier, `verify_ipp` 1 + 3 times, a
+             tampered proof rejected, and one proof with the per-round
+             bucket kernel, byte-identical to the chunked one;
+  6 launches the launch counts of each path (phases 3-4, phase 5), each
+             kernel of a path required > 0 there.
 The last line is {"ok": true, "device": {...}}.  Any failure raises and
 exits non-zero before it.  Without a CUDA card the script exits 2.
 """
@@ -33,15 +42,21 @@ import time
 
 import torch
 
+import bulletproofs_tpu_torch as bt
 from bulletproofs_tpu_torch.config import BLS381, using_curve
+from bulletproofs_tpu_torch.ipp import verification_scalars
 from bulletproofs_tpu_torch.ops import build, ec_kernels as ek
 from bulletproofs_tpu_torch.ops import msm as msm_mod
-from bulletproofs_tpu_torch.ops.ec import (CurveCtx, from_device_points,
+from bulletproofs_tpu_torch.ops import prover_device
+from bulletproofs_tpu_torch.ops.ec import (CurveCtx, content_digest,
+                                           from_device_points,
                                            to_device_points,
                                            to_device_points_affine,
                                            to_device_scalars)
 from bulletproofs_tpu_torch.ops.field import pack32
-from bulletproofs_tpu_torch.ops.ec_host import G1
+from bulletproofs_tpu_torch.ops.ec_host import G1, msm_host
+from bulletproofs_tpu_torch.ops.field_host import Scalar, inner_product
+from bulletproofs_tpu_torch.utils.errors import VerificationError
 
 # Bound model (NVIDIA H100 SXM data sheet, at its 700 W limit).  HBM3 at
 # 3.35 TB/s.  Integer multiply-adds: the float32 rate of 67 TFLOP/s counts
@@ -55,6 +70,12 @@ REPLACES = {
     "bucket_rounds_mixed": "bulletproofs_tpu/ops/ec_pallas.py:425",
     "bucket_rounds_proj": "bulletproofs_tpu/ops/ec_pallas.py:355",
     "ec_add": "bulletproofs_tpu/ops/ec_pallas.py:499",
+    "bucket_round_add": "bulletproofs_tpu/ops/ec_pallas.py:469",
+}
+# The kernels each path launches: the MSM phases 3-4 and the IPA phase 5.
+PATHS = {
+    "msm": ("bucket_rounds_mixed", "bucket_rounds_proj", "ec_add"),
+    "ipa": ("bucket_rounds_mixed", "ec_add", "bucket_round_add"),
 }
 N_BASE = 256
 
@@ -139,11 +160,20 @@ def _random_points(rnd, m, cv):
     return [G1.random(rnd, cv) for _ in range(m)]
 
 
+def ipa_slots(n):
+    """Bucket slots of the IPA's two-set MSM over 2n + 2 points."""
+    ctx = CurveCtx(BLS381)
+    c = msm_mod.pick_window(2 * n + 2)
+    return msm_mod.window_plan(ctx, c, n_sets=2, dup=True)[0].shape[0] << c
+
+
 def phase_kernels(device, n, seed, reps=5):
-    """Each kernel against its plain version at the MSM's full width:
-    S = W*B slots of `window_plan(dup=True)` at c = pick_window(n), R_c =
-    EC_CHUNK rounds.  ~30% empty slots, half the accumulators start at the
-    identity, slot 0 is forced to double.  Returns per-kernel records."""
+    """Each kernel against its plain version at the width of its path: the
+    chunked kernels at the MSM's S = W*B slots of `window_plan(dup=True)`
+    at c = pick_window(n) and R_c = EC_CHUNK rounds, the mixed one and the
+    per-round kernel also at the IPA MSM's slots.  ~30% empty slots, half the accumulators start
+    at the identity, one slot is forced to double.  Returns per-kernel
+    records."""
     t0 = time.time()
     device = torch.device(device)
     cv = BLS381
@@ -170,14 +200,36 @@ def phase_kernels(device, n, seed, reps=5):
     buckets = torch.cat([ctx.identity_like((half,), device),
                          acc_pts[:, :, idx.to(device)]], dim=2)
 
-    pid = torch.randint(0, m, (R_c, S), generator=gen)
-    found = (torch.rand((R_c, S), generator=gen) < 0.7).to(torch.int32)
-    pid[1, 0] = pid[0, 0]                 # slot 0 doubles in round 1
-    found[0, 0] = found[1, 0] = 1
-    pid, found = pid.to(device), found.to(device)
-    rows_xy = table[:2].permute(2, 0, 1).reshape(m, 2 * L)[
-        pid.reshape(-1)]
-    rows_proj = proj.permute(2, 0, 1).reshape(m, 3 * L)[pid.reshape(-1)]
+    def rounds_input(S_k):
+        """R_c rounds of S_k slots: (pid, found) with slot 0 doubling in
+        round 1, and the affine and projective rows they gather."""
+        pid = torch.randint(0, m, (R_c, S_k), generator=gen)
+        found = (torch.rand((R_c, S_k), generator=gen) < 0.7).to(
+            torch.int32)
+        pid[1, 0] = pid[0, 0]
+        found[0, 0] = found[1, 0] = 1
+        pid, found = pid.to(device), found.to(device)
+        rows_xy = table[:2].permute(2, 0, 1).reshape(m, 2 * L)[
+            pid.reshape(-1)]
+        rows_proj = proj.permute(2, 0, 1).reshape(m, 3 * L)[
+            pid.reshape(-1)]
+        return found, rows_xy, rows_proj
+
+    found, rows_xy, rows_proj = rounds_input(S)
+
+    S_ipa = ipa_slots(n)                  # the IPA's two-set MSM
+    idx = torch.randint(0, acc_pts.shape[2], (S_ipa - S_ipa // 2,),
+                        generator=gen)
+    buckets_ipa = torch.cat([ctx.identity_like((S_ipa // 2,), device),
+                             acc_pts[:, :, idx.to(device)]], dim=2)
+    found_ipa_c, rows_xy_ipa, _ = rounds_input(S_ipa)
+    pid_ipa = torch.randint(0, m, (S_ipa,), generator=gen).to(device)
+    found_ipa = (torch.rand(S_ipa, generator=gen) < 0.7).to(torch.int32)
+    found_ipa[-1] = 1
+    found_ipa = found_ipa.to(device)
+    rows_ipa = proj.permute(2, 0, 1).reshape(m, 3 * L)[pid_ipa]
+    buckets_round = buckets_ipa.clone()
+    buckets_round[:, :, -1] = proj[:, :, pid_ipa[-1]]       # P + P
 
     n_add = n + 3                         # ragged: not a multiple of a tile
     ia = torch.randint(0, m, (n_add,), generator=gen).to(device)
@@ -191,33 +243,56 @@ def phase_kernels(device, n, seed, reps=5):
     imad = imad_per_mont_mul(ctx)
     nl = L // 2
     w32 = 4                               # the kernels move 32-bit words
-    n_found = int(found.sum())
-    # name: (wrapper, plain, args, bare launch on packed operands,
-    #        bytes the kernel moves, IMADs of its mont_muls)
-    cases = {
-        "bucket_rounds_mixed": (
-            ek.bucket_rounds_mixed, ek.bucket_rounds_mixed_plain,
-            (buckets, rows_xy, found), ek.bucket_rounds_mixed32,
-            (2 * 3 * nl * S + R_c * S * 2 * nl + R_c * S) * w32,
-            n_found * 11 * imad),
-        "bucket_rounds_proj": (
-            ek.bucket_rounds_proj, ek.bucket_rounds_proj_plain,
-            (buckets, rows_proj, found), ek.bucket_rounds_proj32,
-            (2 * 3 * nl * S + R_c * S * 3 * nl + R_c * S) * w32,
-            R_c * S * 12 * imad),
-        "ec_add": (
-            ek.ec_add, ek.ec_add_plain, (P, Q), None,
-            3 * 3 * nl * n_add * w32, n_add * 12 * imad),
-    }
+
+    def rounds_work(found_k, row_words, empty_muls):
+        """(bytes, IMADs) of the rounds the data needs: the accumulators
+        read and written once, `found` read, a row read only where its slot
+        is occupied; an occupied slot's add takes 11 (mixed) or 12
+        products, an empty one `empty_muls` (a projective add of the
+        identity is (X*Y : Y*Y : Z*Y), 3 products; the mixed kernel keeps
+        the slot, 0)."""
+        slots = found_k.numel()
+        live = int(found_k.sum())
+        full = 11 if row_words == 2 * nl else 12
+        n_bytes = (2 * 3 * nl * found_k.shape[-1] + live * row_words
+                   + slots) * w32
+        return n_bytes, (live * full + (slots - live) * empty_muls) * imad
+
+    # (name, wrapper, plain, args, bare launch on packed operands,
+    #  (bytes the kernel moves, IMADs of its mont_muls), shape);
+    # the first record of a name is its kernel-line record
+    chunk_shape = {"S": S, "R_c": R_c}
+    cases = [
+        ("bucket_rounds_mixed", ek.bucket_rounds_mixed,
+         ek.bucket_rounds_mixed_plain, (buckets, rows_xy, found),
+         ek.bucket_rounds_mixed32, rounds_work(found, 2 * nl, 0),
+         chunk_shape),
+        ("bucket_rounds_mixed", ek.bucket_rounds_mixed,
+         ek.bucket_rounds_mixed_plain,
+         (buckets_ipa, rows_xy_ipa, found_ipa_c), ek.bucket_rounds_mixed32,
+         rounds_work(found_ipa_c, 2 * nl, 0), {"S": S_ipa, "R_c": R_c}),
+        ("bucket_rounds_proj", ek.bucket_rounds_proj,
+         ek.bucket_rounds_proj_plain, (buckets, rows_proj, found),
+         ek.bucket_rounds_proj32, rounds_work(found, 3 * nl, 3),
+         chunk_shape),
+        ("ec_add", ek.ec_add, ek.ec_add_plain, (P, Q), None,
+         (3 * 3 * nl * n_add * w32, n_add * 12 * imad), {"n": n_add}),
+        ("bucket_round_add", ek.bucket_round_add,
+         ek.bucket_round_add_plain, (buckets_round, rows_ipa, found_ipa),
+         ek.bucket_round_add32, rounds_work(found_ipa, 3 * nl, 3),
+         {"S": S_ipa}),
+    ]
     records = {}
-    for name, (kernel, plain, args, bare, n_bytes, n_imad) in cases.items():
+    for (name, kernel, plain, args, bare, (n_bytes, n_imad),
+         shape) in cases:
         got = kernel(*args, ctx)
         _sync(device)
         plain_ms, want = time_ms(lambda: plain(*args, ctx), device, 1)
         err = int((got - want).abs().max())
         if err != 0 or got.shape != want.shape:
-            raise AssertionError(f"{name}: kernel differs from its plain "
-                                 f"version (max abs limb error {err})")
+            raise AssertionError(f"{name} at {shape}: kernel differs from "
+                                 f"its plain version (max abs limb error "
+                                 f"{err})")
         wrapper_ms, _ = time_ms(lambda: kernel(*args, ctx), device, reps)
         ms = None                         # the bare kernel: on the card only
         if device.type == "cuda":
@@ -229,15 +304,19 @@ def phase_kernels(device, n, seed, reps=5):
                 launch = lambda: bare(*packed, ctx)   # in place; same work
             ms, _ = time_ms(launch, device, reps)
         bound_ms, bound_by = bound(n_bytes, n_imad)
-        records[name] = {"name": name, "route": "cuda",
-                         "source": KERNEL_SOURCE,
-                         "replaces": REPLACES[name], "max_abs_err": err,
-                         "ms": ms, "wrapper_ms": wrapper_ms,
-                         "plain_ms": plain_ms,
-                         "bound_ms": bound_ms, "bound_by": bound_by,
-                         "library_ms": None}
-        emit({"phase": "kernel", **records[name],
-              "shape": {"S": S, "R_c": R_c, "n": n_add}})
+        rec = {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
+               "replaces": REPLACES[name], "max_abs_err": err, "ms": ms,
+               "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": None}
+        emit({"phase": "kernel", **rec, "shape": shape})
+        if name in records:               # a further shape of a path
+            records[name].setdefault("other_shapes", []).append(
+                {"shape": shape, "max_abs_err": err, "ms": ms,
+                 "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+                 "bound_ms": bound_ms})
+        else:
+            records[name] = {**rec, "shape": shape}
 
     # independent spot check of the batched add against host ints
     picks = [0, 1, 2, 3, n_add - 1]
@@ -248,7 +327,7 @@ def phase_kernels(device, n, seed, reps=5):
     for s, a, b in zip(sums, pp, qq):
         if s != a + b:
             raise AssertionError("ec_add disagrees with host ints")
-    emit({"phase": "kernels", "S": S, "R_c": R_c, "found": n_found,
+    emit({"phase": "kernels", "S": S, "S_ipa": S_ipa, "R_c": R_c,
           "seconds": time.time() - t0})
     return records
 
@@ -311,6 +390,162 @@ def phase_msm(device, n, seed, bits, reps):
           "seconds": time.time() - t0})
 
 
+def _ipa_input(n, seed):
+    """The bench's config-3 input (`bench.py` config3): m = n_base(n)
+    hash-derived G and H bases repeated to n, Q, unit factors, uniform a
+    and b; and P = <a, G> + <b, H> + <a, b> Q from one host MSM over the
+    2m + 1 distinct points."""
+    cv = BLS381
+    m = n_base(n)
+    Gb = [G1.from_msg_hash(b"G%d" % i, cv) for i in range(m)]
+    Hb = [G1.from_msg_hash(b"H%d" % i, cv) for i in range(m)]
+    Q = G1.from_msg_hash(b"Q", cv)
+    rnd = random.Random(seed)
+    a = [Scalar.random(rnd, cv) for _ in range(n)]
+    b = [Scalar.random(rnd, cv) for _ in range(n)]
+    P = msm_host(Gb + Hb + [Q], _collapse(a, m) + _collapse(b, m)
+                 + [inner_product(a, b).v])
+    return Gb, Hb, Q, a, b, P
+
+
+def _collapse(vals, m):
+    """sum_{i = j mod m} vals_i mod r for j < m: the scalar of base j."""
+    r = BLS381.r
+    out = [0] * m
+    for i, v in enumerate(vals):
+        out[i % m] += v.v if hasattr(v, "v") else v
+    return [x % r for x in out]
+
+
+def _host_check(proof, n, Gb, Hb, Q, P, label):
+    """The verification equation of `ipp.verify_ipp` in Python ints,
+    independent of the device verifier: replay the transcript, build s,
+    and collapse the G and H terms onto their m bases, so the check is one
+    host MSM over 2m + 2 lg n + 1 points."""
+    r = BLS381.r
+    u_sq, u_inv_sq, s = verification_scalars(proof.L, proof.R, n,
+                                             bt.ProofTranscript(label))
+    a, b = proof.a.v, proof.b.v
+    g = _collapse([a * si.v for si in s], len(Gb))
+    h = _collapse([b * si.v for si in reversed(s)], len(Hb))
+    want = msm_host([Q] + Gb + Hb + list(proof.L) + list(proof.R),
+                    [a * b % r] + g + h + [r - u.v for u in u_sq]
+                    + [r - u.v for u in u_inv_sq])
+    if want != P:
+        raise AssertionError("ipa: the proof fails the host check")
+
+
+def _proof_bytes(proof):
+    return ([p.to_bytes() for p in proof.L], [p.to_bytes() for p in proof.R],
+            proof.a.to_bytes(), proof.b.to_bytes())
+
+
+def phase_ipa(device, n, seed, reps):
+    """The standalone IPA at n through the port's entry points."""
+    t0 = time.time()
+    label = b"ipa_smoke"
+    Gb, Hb, Q, a, b, P = _ipa_input(n, seed)
+    m = len(Gb)
+    G = [Gb[i % m] for i in range(n)]
+    H = [Hb[i % m] for i in range(n)]
+    ones = [Scalar.one(BLS381)] * n
+    setup = time.time() - t0
+
+    per_call = {}               # kernel launches of one call of each kind
+
+    def counted(kind, fn):
+        before = dict(ek.launches)
+        out = fn()
+        per_call[kind] = {k: v - before[k] for k, v in ek.launches.items()}
+        return out
+
+    def prove(ec_kernel="chunk", profile=False):
+        """-> (proof, seconds); profile: the stages' seconds go to
+        `prover_device._prof` (each stage synchronizes the card)."""
+        prover_device._prof.enabled = profile
+        t1 = time.time()
+        try:
+            proof = counted(f"prove_{ec_kernel}", lambda: bt.create_ipp(
+                bt.ProofTranscript(label), Q, ones, ones, G, H, a, b,
+                device=device, ec_kernel=ec_kernel))
+        finally:
+            prover_device._prof.enabled = False
+        return proof, time.time() - t1
+
+    prover_device._prof.take()
+    # the stage split comes from one more warm call (from the cold call
+    # when there are no warm ones), so the timed calls carry no syncs
+    proof, prove_first = prove(profile=not reps)
+    want = _proof_bytes(proof)
+    times = []
+    for _ in range(reps):
+        again, dt = prove()
+        times.append(dt)
+        if _proof_bytes(again) != want:
+            raise AssertionError("ipa: proofs of one input differ")
+    if reps:
+        prove(profile=True)
+    stages = prover_device._prof.take()
+
+    t1 = time.time()
+    _host_check(proof, n, Gb, Hb, Q, P, label)
+    host_check = time.time() - t1
+    # what the point-table cache pays on every prove and verify call
+    t1 = time.time()
+    content_digest(G, CurveCtx(BLS381))
+    content_digest(H, CurveCtx(BLS381))
+    digest = time.time() - t1
+
+    def verify(a_fin):
+        t1 = time.time()
+        counted("verify", lambda: bt.verify_ipp(
+            n, bt.ProofTranscript(label), ones, ones, P, Q, G, H, a_fin,
+            proof.b, proof.L, proof.R, device=device))
+        return time.time() - t1
+
+    verify_first = verify(proof.a)
+    vtimes = [verify(proof.a) for _ in range(reps)]
+    try:
+        bt.verify_ipp(n, bt.ProofTranscript(label), ones, ones, P, Q, G, H,
+                      proof.a + Scalar.one(BLS381), proof.b, proof.L,
+                      proof.R, device=device)
+    except VerificationError:
+        pass
+    else:
+        raise AssertionError("ipa: a tampered proof (a + 1) verified")
+
+    round_proof, round_s = prove("round")
+    if _proof_bytes(round_proof) != want:
+        raise AssertionError("ipa: the per-round kernel's proof differs")
+    p50 = lambda ts, first: sorted(ts)[len(ts) // 2] if ts else first
+    emit({"phase": "ipa", "n": n, "bases": m,
+          "ipa_prove_first_seconds": prove_first,
+          "ipa_prove_seconds_p50": p50(times, prove_first),
+          "ipa_prove_stage_seconds": stages,
+          "stage_call": "warm" if reps else "cold",
+          "ipa_verify_first_seconds": verify_first,
+          "ipa_verify_seconds_p50": p50(vtimes, verify_first),
+          "ipa_prove_round_kernel_seconds": round_s,
+          "host_check_seconds": host_check,
+          "table_digest_seconds": digest, "launches_per_call": per_call,
+          "tampered_rejected": True,
+          "round_kernel_proof_identical": True, "setup_seconds": setup,
+          "a": proof.a.to_bytes().hex()[-32:], "seconds": time.time() - t0})
+
+
+def _run_path(name, drive):
+    """Drive one path with the launch counts at 0 and read them after:
+    -> the path's counts; each kernel of the path must have launched."""
+    ek.reset_launches()
+    drive()
+    counts = dict(ek.launches)
+    for kernel in PATHS[name]:
+        if counts[kernel] <= 0:
+            raise AssertionError(f"{kernel} never launched on the {name} "
+                                 "path")
+    return counts
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0xBE7C)
@@ -325,15 +560,20 @@ def main():
         phase_build()
         records = phase_kernels("cuda", args.n, args.seed)
 
-        ek.reset_launches()
-        phase_msm("cuda", args.n, args.seed, bits=False, reps=3)
-        phase_msm("cuda", args.n, args.seed + 1, bits=True, reps=3)
-        counts = dict(ek.launches)
-        for name, k in counts.items():
-            if k <= 0:
-                raise AssertionError(f"{name} never launched on the path")
-            records[name]["launches"] = k
-        emit({"phase": "launches", "launches": counts,
+        def msm_path():
+            phase_msm("cuda", args.n, args.seed, bits=False, reps=3)
+            phase_msm("cuda", args.n, args.seed + 1, bits=True, reps=3)
+
+        by_path = {
+            "msm": _run_path("msm", msm_path),
+            "ipa": _run_path("ipa", lambda: phase_ipa(
+                "cuda", args.n, args.seed + 2, reps=3)),
+        }
+        for name, rec in records.items():
+            rec["launches"] = sum(c[name] for c in by_path.values())
+            rec["launches_by_path"] = {p: c[name] for p, c in
+                                       by_path.items()}
+        emit({"phase": "launches", "launches": by_path,
               "seconds": time.time() - t_start})
     print(smi, flush=True)
     emit({"kernels": [records[k] for k in REPLACES]})

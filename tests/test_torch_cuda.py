@@ -1,6 +1,7 @@
-"""The port's CUDA kernels and MSM on the card: each kernel against its
-plain PyTorch version, limb for limb, and the MSM against exact-int host
-sums.  Every test is marked `cuda` and skips without a card.
+"""The port's CUDA kernels, MSM and IPA on the card: each kernel against
+its plain PyTorch version, limb for limb, the MSM against exact-int host
+sums, and an IPA proof against the port's own CPU run, byte for byte.
+Every test is marked `cuda` and skips without a card.
 
 This file imports neither jax nor the JAX package, so on a machine without
 JAX it runs without the suite's conftest:
@@ -19,6 +20,7 @@ from bulletproofs_tpu_torch.ops import ec as E
 from bulletproofs_tpu_torch.ops import ec_kernels as ek
 from bulletproofs_tpu_torch.ops import msm as M
 from bulletproofs_tpu_torch.ops.field import pack32, unpack32
+from bulletproofs_tpu_torch.ops.field_host import inner_product
 
 CURVES = {"bls381": BLS381, "bn254": BN254}
 
@@ -135,3 +137,57 @@ def test_msm_entry_on_card(cuda_device):
     pts = [bt.G1.random(rnd, BN254) for _ in range(300)]
     ks = [rnd.randrange(BN254.r) for _ in range(300)]
     assert bt.msm(pts, ks) == bt.msm_host(pts, ks)
+
+
+@pytest.mark.cuda
+def test_bucket_round_add_matches_plain_on_card(cuda_device):
+    """Kernel 4 at the slot count of the n = 2^16 IPA's two-set MSM
+    (66 rows of 256 buckets), wrapped and bare."""
+    S = 16896
+    ctx, acc, rows, found, _ = _round_inputs(BLS381, 12, S, 2, 3,
+                                             cuda_device)
+    rows, found = rows[:S].contiguous(), found[0].contiguous()
+    ek.reset_launches()
+    got = ek.bucket_round_add(acc, rows, found, ctx)
+    want = ek.bucket_round_add_plain(acc, rows, found, ctx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    bare, rows32, found32 = ek.pack_rounds(acc, rows, found)
+    ek.bucket_round_add32(bare, rows32, found32, ctx)
+    assert torch.equal(unpack32(bare, 1), want)
+    assert ek.launches["bucket_round_add"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ec_kernel", ["chunk", "round"])
+def test_ipa_on_card_matches_cpu(ec_kernel, cuda_device):
+    """An n = 256 IPA proved on the card is byte-identical to the port's
+    CPU proof of the same input, and verifies on the card."""
+    cv = BLS381
+    n = 256
+    rnd = random.Random(40)
+    G, H = bt.get_generators("G", n), bt.get_generators("H", n)
+    Q = bt.G1.from_msg_hash(b"Q", cv)
+    a = [bt.Scalar.random(rnd, cv) for _ in range(n)]
+    b = [bt.Scalar.random(rnd, cv) for _ in range(n)]
+    Gf = [bt.Scalar.random(rnd, cv) for _ in range(n)]
+    Hf = [bt.Scalar.random(rnd, cv) for _ in range(n)]
+    args = (Q, Gf, Hf, G, H, a, b)
+    proofs = {}
+    for dev in ("cpu", "cuda"):
+        tr = bt.ProofTranscript(b"card")
+        ek.reset_launches()
+        proof = bt.create_ipp(tr, *args, device=dev, ec_kernel=ec_kernel)
+        proofs[dev] = ([p.to_bytes() for p in proof.L],
+                       [p.to_bytes() for p in proof.R], proof.a.v,
+                       proof.b.v, tr.challenge_scalar(b"post").v)
+    key = "bucket_round_add" if ec_kernel == "round" \
+        else "bucket_rounds_mixed"
+    assert ek.launches[key] > 0
+    assert proofs["cuda"] == proofs["cpu"]
+    P = bt.msm_host(G + H + [Q],
+                    [x * f for x, f in zip(a, Gf)]
+                    + [x * f for x, f in zip(b, Hf)]
+                    + [inner_product(a, b)])
+    bt.verify_ipp(n, bt.ProofTranscript(b"card"), Gf, Hf, P, Q, G, H,
+                  proof.a, proof.b, proof.L, proof.R)

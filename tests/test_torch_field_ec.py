@@ -26,6 +26,10 @@ from bulletproofs_tpu_torch.ops import field as F
 from bulletproofs_tpu_torch.ops.ec_host import G1, msm_host
 from bulletproofs_tpu_torch.ops.field_host import Scalar
 
+# One torch thread: the suite runs several test processes at once, and
+# each process's own thread pool would oversubscribe the cores.
+torch.set_num_threads(1)
+
 CURVES = ["bls381", "bn254"]
 
 
@@ -86,6 +90,40 @@ def test_field_ops_match_field_jax(curve, field):
     assert F.limbs_to_ints(got[0]) == [u * v * rinv % p
                                        for u, v in zip(xs, ys)]
     assert ctx.from_mont(ctx.to_mont(xs, "cpu")) == xs
+
+
+def _chain_values(modulus, n_limbs):
+    """Canonical values whose limbs make long carry and borrow chains:
+    runs of 0xFFFF and of zeros, from the bottom and from the top, next to
+    0, 1, p - 1 and p - 2^16."""
+    vals = {0, 1, modulus - 1, modulus - 2, modulus - (1 << 16)}
+    for k in range(1, n_limbs + 1):
+        run = (1 << (16 * k)) - 1
+        vals.update({run % modulus, (modulus - run) % modulus,
+                     (modulus >> (16 * k)) << (16 * k), (1 << (16 * k))
+                     % modulus})
+    return sorted(vals)
+
+
+@pytest.mark.parametrize("field", ["fp", "fr"])
+@pytest.mark.parametrize("curve", CURVES)
+def test_carry_chains_match_python_ints(curve, field):
+    """The vectorized carry and borrow chains of add_mod, sub_mod and
+    mont_mul on every pair of chain-heavy values, against Python ints."""
+    fp = getattr(config.CURVES[curve], field)
+    ctx = F.FieldCtx(fp)
+    p, rinv = fp.modulus, pow(fp.mont_r, -1, fp.modulus)
+    vals = _chain_values(p, fp.n_limbs)
+    xs = [u for u in vals for _ in vals]
+    ys = [v for _ in vals for v in vals]
+    x = torch.as_tensor(F.ints_to_limbs(xs, fp.n_limbs))
+    y = torch.as_tensor(F.ints_to_limbs(ys, fp.n_limbs))
+    assert F.limbs_to_ints(F.add_mod(x, y, ctx)) == \
+        [(u + v) % p for u, v in zip(xs, ys)]
+    assert F.limbs_to_ints(F.sub_mod(x, y, ctx)) == \
+        [(u - v) % p for u, v in zip(xs, ys)]
+    assert F.limbs_to_ints(F.mont_mul(x, y, ctx)) == \
+        [u * v * rinv % p for u, v in zip(xs, ys)]
 
 
 @pytest.mark.parametrize("c", [3, 4, 6, 8])

@@ -27,6 +27,10 @@ from bulletproofs_tpu_torch.ops import ec as E
 from bulletproofs_tpu_torch.ops import ec_kernels as ek
 from bulletproofs_tpu_torch.ops.ec_host import G1
 
+# One torch thread: the suite runs several test processes at once, and
+# each process's own thread pool would oversubscribe the cores.
+torch.set_num_threads(1)
+
 CURVES = {"bls381": (BLS381, JBLS381), "bn254": (BN254, JBN254)}
 
 

@@ -34,6 +34,10 @@ from bulletproofs_tpu_torch.ops import ec as E
 from bulletproofs_tpu_torch.ops import field as F
 from bulletproofs_tpu_torch.ops import msm as M
 
+# One torch thread: the suite runs several test processes at once, and
+# each process's own thread pool would oversubscribe the cores.
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parent.parent
 
 
@@ -105,8 +109,9 @@ def test_digits_slot_grid_and_occupancy_match(n):
     ("bls381", 256, 0), ("bls381", 256, 1), ("bls381", 1024, 0)])
 def test_bucket_arrays_match_jax(curve, n, pre_reduce):
     """Bucket arrays after the rounds, the sub-bucket fold and the
-    duplicate-row fold: projective rows give the JAX package's limbs
-    exactly; the mixed-add path gives the same points."""
+    duplicate-row fold: projective rows, chunked or one round per launch
+    (`ec_kernel="round"`), give the JAX package's limbs exactly; the
+    mixed-add path gives the same points."""
     cv, jcv = config.CURVES[curve], jconfig.CURVES[curve]
     ctx = E.CurveCtx(cv)
     c = M.pick_window(n)
@@ -130,14 +135,24 @@ def test_bucket_arrays_match_jax(curve, n, pre_reduce):
                                    pre_reduce=pre_reduce)
     assert occ == int(jocc)
     np.testing.assert_array_equal(E.to_jax_points(got), np.asarray(want))
+    per_round, occ_r = M.bucket_accumulate(Pt, digits, ctx, c, rounds,
+                                           plan=plan, pre_reduce=pre_reduce,
+                                           ec_kernel="round")
+    assert occ_r == occ
+    np.testing.assert_array_equal(E.to_jax_points(per_round),
+                                  np.asarray(want))
     if pre_reduce == 0 and n == 256:
         Pa, affine = E.to_device_points_affine(pts, ctx, "cpu")
         assert affine
         mixed, _ = M.bucket_accumulate(Pa, digits, ctx, c, rounds,
                                        plan=plan, affine=True)
+        # an affine table still takes projective rows one round a launch
+        round_affine, _ = M.bucket_accumulate(Pa, digits, ctx, c, rounds,
+                                              plan=plan, affine=True,
+                                              ec_kernel="round")
         flat = lambda b: E.from_device_points(b.reshape(3, ctx.fp.L, -1),
                                               ctx)
-        assert flat(mixed) == flat(got)
+        assert flat(mixed) == flat(got) == flat(round_affine)
 
 
 def test_overflowing_schedule_adds_nothing():
