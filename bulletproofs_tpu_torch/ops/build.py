@@ -1,11 +1,14 @@
-"""Build and load the port's CUDA kernels: `nvcc` into a shared library with
+"""Build and load the port's CUDA kernels: `nvcc` into shared libraries with
 a plain C interface, loaded with `ctypes`.  No PyTorch headers and no
-`torch.utils.cpp_extension`, so a cold build takes seconds.
+`torch.utils.cpp_extension`, so a cold build takes seconds to a minute.
 
-The library is built at first CUDA use into `bulletproofs_tpu_torch/_build/`
-(listed in `.gitignore`), named by a hash of the source and the flags, so an
-edited source builds anew and an unchanged one is reused.  A failed build
-raises with the compiler's output.
+Each source of `SOURCES` is its own library: kernels 1-4 in
+`csrc/ec_kernels.cu`, kernel 5 in `csrc/mxu_kernels.cu`, both including
+`csrc/ec_common.cuh`.  The libraries are built at first CUDA use into
+`bulletproofs_tpu_torch/_build/` (listed in `.gitignore`), one `nvcc` per
+source, all started together; each is named by a hash of its source, the
+shared header and the flags, so an edited source builds anew and an
+unchanged one is reused.  A failed build raises with the compiler's output.
 """
 
 import ctypes
@@ -15,6 +18,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from types import SimpleNamespace
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -23,15 +27,20 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-SOURCE = CSRC / "ec_kernels.cu"
+HEADERS = (CSRC / "ec_common.cuh",)
 
-# C signatures of SOURCE: every pointer and the stream are c_void_p
+# C signatures by source: every pointer and the stream are c_void_p
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-SIGNATURES = {
-    "bp_bucket_rounds_mixed": (_P, _P, _P, _I, _I, _I, _P, _P),
-    "bp_bucket_rounds_proj": (_P, _P, _P, _I, _I, _I, _P, _P),
-    "bp_ec_add": (_P, _P, _P, _LL, _I, _P, _P),
-    "bp_bucket_round_add": (_P, _P, _P, _I, _I, _P, _P),
+SOURCES = {
+    CSRC / "ec_kernels.cu": {
+        "bp_bucket_rounds_mixed": (_P, _P, _P, _I, _I, _I, _P, _P),
+        "bp_bucket_rounds_proj": (_P, _P, _P, _I, _I, _I, _P, _P),
+        "bp_ec_add": (_P, _P, _P, _LL, _I, _P, _P),
+        "bp_bucket_round_add": (_P, _P, _P, _I, _I, _P, _P),
+    },
+    CSRC / "mxu_kernels.cu": {
+        "bp_bucket_round_add_mxu": (_P, _P, _P, _I, _I, _P, _P, _P),
+    },
 }
 
 
@@ -47,38 +56,57 @@ def nvcc_path():
     return found
 
 
-def library_path():
-    """Where `build()` puts the library for the current source."""
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{SOURCE.stem}-{digest.hexdigest()[:16]}.so"
+def library_path(source):
+    """Where `build()` puts the library of `source` for its current text."""
+    digest = hashlib.sha256(source.read_bytes())
+    for header in HEADERS:
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{source.stem}-{digest.hexdigest()[:16]}.so"
 
 
 def build():
-    """Compile SOURCE unless the library for this source exists.
-    Returns (library path, ptxas report: the compiler's stderr, empty when
-    the library was already built)."""
-    out = library_path()
-    if out.exists():
-        return out, ""
+    """Compile every source whose library does not exist, all at once.
+    Returns {library path: ptxas report}, the report being the compiler's
+    stderr, empty for a library that was already built."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out, proc.stderr
+    reports, running = {}, []
+    for source in SOURCES:
+        out = library_path(source)
+        if out.exists():
+            reports[out] = ""
+            continue
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        running.append((out, tmp, cmd, proc))
+    failed = []
+    for out, tmp, cmd, proc in running:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{err}")
+        else:
+            os.replace(tmp, out)
+            reports[out] = err
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return reports
 
 
 @functools.cache
 def load():
-    """Build if needed, then load the library with its C signatures set."""
-    path, _ = build()
-    lib = ctypes.CDLL(str(path))
-    for fn, argtypes in SIGNATURES.items():
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = ctypes.c_int
-    return lib
+    """Build if needed, then load every library with its C signatures set:
+    -> a namespace of the C functions by name."""
+    build()
+    fns = {}
+    for source, signatures in SOURCES.items():
+        lib = ctypes.CDLL(str(library_path(source)))
+        for name, argtypes in signatures.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            fns[name] = fn
+    return SimpleNamespace(**fns)

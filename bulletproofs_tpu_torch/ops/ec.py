@@ -69,11 +69,13 @@ class CurveCtx:
 # Group law
 # ---------------------------------------------------------------------------
 
-def ec_add(P, Q, ctx: CurveCtx):
+def ec_add(P, Q, ctx: CurveCtx, mul=mont_mul):
     """Complete projective addition (RCB16), batched: P, Q (3, L, *batch).
 
     Independent field multiplies are stacked on an inner batch axis, as in
-    the JAX function: two 6-wide Montgomery multiplies for a = 0."""
+    the JAX function: two 6-wide Montgomery multiplies for a = 0.  `mul` is
+    the Montgomery product (`field.mont_mul`, or `field.mont_mul_mxu`, which
+    gives the same limbs: the plain version of kernel 5)."""
     f = ctx.fp
     b3 = ctx.b3
     X1, Y1, Z1 = P[0], P[1], P[2]
@@ -87,7 +89,7 @@ def ec_add(P, Q, ctx: CurveCtx):
     # t0 = X1X2, t1 = Y1Y2, t2 = Z1Z2 and the three sum products
     lhs = torch.cat([torch.stack([X1, Y1, Z1], dim=1), s1], dim=1)
     rhs = torch.cat([torch.stack([X2, Y2, Z2], dim=1), s2], dim=1)
-    t = mont_mul(lhs, rhs, f)
+    t = mul(lhs, rhs, f)
     t0, t1, t2 = t[:, 0], t[:, 1], t[:, 2]
     # xy = X1Y2+X2Y1, yz = Y1Z2+Y2Z1, xz = X1Z2+X2Z1
     d = sub_mod(sub_mod(t[:, 3:6], torch.stack([t0, t1, t0], dim=1), f),
@@ -100,15 +102,15 @@ def ec_add(P, Q, ctx: CurveCtx):
     b3_t2 = mul_small(t2, b3, f)
     m = sub_mod(t1, b3_t2, f)              # Y1Y2 - 3b Z1Z2
     n = add_mod(t1, b3_t2, f)              # Y1Y2 + 3b Z1Z2
-    return _ec_add_a0_tail(xy, yz, xz, t0, m, n, ctx)
+    return _ec_add_a0_tail(xy, yz, xz, t0, m, n, ctx, mul)
 
 
-def _ec_add_a0_tail(xy, yz, xz, t0, m, n, ctx):
+def _ec_add_a0_tail(xy, yz, xz, t0, m, n, ctx, mul=mont_mul):
     """The shared end of RCB16 algorithms 7 and 8 (a = 0)."""
     f = ctx.fp
     b3 = ctx.b3
     # xy*m, yz*xz, n*m, t0*xz, yz*n, t0*xy: one stacked multiply
-    u = mont_mul(torch.stack([xy, yz, n, t0, yz, t0], dim=1),
+    u = mul(torch.stack([xy, yz, n, t0, yz, t0], dim=1),
                  torch.stack([m, xz, m, xz, n, xy], dim=1), f)
     w = mul_small(torch.stack([u[:, 1], u[:, 3]], dim=1), b3, f)
     v = mul_small(torch.stack([w[:, 1], u[:, 5]], dim=1), 3, f)

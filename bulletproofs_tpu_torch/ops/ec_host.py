@@ -1,6 +1,6 @@
 """Host G1 group over exact Python integers: the port's own copy of
-`G1` and `msm_host` from `bulletproofs_tpu/ops/ec_host.py`, and the port's
-ground truth.
+`G1`, `commit_to_field_element` and `msm_host` from
+`bulletproofs_tpu/ops/ec_host.py`, and the port's ground truth.
 
 It uses the same branch-free complete projective addition (Renes-Costello-
 Batina 2016: the a = 0 algorithm 7 for the pairing curves and secp256k1, the
@@ -281,6 +281,12 @@ class G1:
     def __repr__(self):
         x, y = self.affine()
         return f"G1(0x{x:x}, 0x{y:x})"
+
+
+def commit_to_field_element(g, h, v, r):
+    """Pedersen commit g^v h^r (amcl_wrapper::commitment, `prover.rs:123`),
+    two host double-and-add ladders."""
+    return g * v + h * r
 
 
 def msm_host(points, scalars):

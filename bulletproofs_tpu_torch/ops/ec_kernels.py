@@ -1,12 +1,19 @@
-"""The four CUDA kernels of the MSM path (`csrc/ec_kernels.cu`): their
-wrappers, their plain PyTorch versions and their launch counts.
+"""The five CUDA kernels of the port (`csrc/ec_kernels.cu`,
+`csrc/mxu_kernels.cu`): their wrappers, their plain PyTorch versions and
+their launch counts.
 
-| wrapper               | replaces (bulletproofs_tpu/ops/ec_pallas.py)     |
-|-----------------------|--------------------------------------------------|
-| `bucket_rounds_mixed` | `bucket_rounds_chunk_pallas_mixed` (:425)        |
-| `bucket_rounds_proj`  | `bucket_rounds_chunk_pallas` (:355)              |
-| `ec_add`              | `ec_add_pallas` (:499)                           |
-| `bucket_round_add`    | `bucket_round_add_pallas` (:469)                 |
+| wrapper                | replaces (bulletproofs_tpu/ops/ec_pallas.py)    |
+|------------------------|-------------------------------------------------|
+| `bucket_rounds_mixed`  | `bucket_rounds_chunk_pallas_mixed` (:425)       |
+| `bucket_rounds_proj`   | `bucket_rounds_chunk_pallas` (:355)             |
+| `ec_add`               | `ec_add_pallas` (:499)                          |
+| `bucket_round_add`     | `bucket_round_add_pallas` (:469)                |
+| `bucket_round_add_mxu` | `bucket_round_add_pallas_mxu` (:217)            |
+
+Kernel 5 computes what kernel 4 computes, with the REDC of each Montgomery
+product as int8 Toeplitz dot products; nothing in the JAX package calls
+its TPU kernel, and no path of the port calls it either: chip_smoke.py
+races it against kernel 4.
 
 A wrapper takes and returns the port's int64 16-bit limb tensors.  For a
 tensor on the CPU it runs the plain version; for a CUDA tensor it packs the
@@ -23,10 +30,10 @@ import torch
 
 from . import build
 from .ec import CurveCtx, ec_add as ec_add_plain, ec_madd
-from .field import mont_mul, pack32, unpack32
+from .field import mont_mul, mont_mul_mxu, mxu_tables, pack32, unpack32
 
 launches = {"bucket_rounds_mixed": 0, "bucket_rounds_proj": 0, "ec_add": 0,
-            "bucket_round_add": 0}
+            "bucket_round_add": 0, "bucket_round_add_mxu": 0}
 
 
 def reset_launches():
@@ -235,11 +242,13 @@ def ec_add(P, Q, ctx: CurveCtx):
 # Kernel 4: one bucket round, projective rows, complete add
 # ---------------------------------------------------------------------------
 
-def bucket_round_add_plain(buckets, rows, found, ctx: CurveCtx):
+def bucket_round_add_plain(buckets, rows, found, ctx: CurveCtx,
+                           mul=mont_mul):
     """buckets (3, L, S); rows (S, 3L) projective; found (S,) -> buckets
     after one round of the complete add (RCB16 algorithm 7): every slot
     adds its row, or the identity (0 : 1 : 0) where found is 0 -- the
-    function of `ec_pallas._round_kernel`.
+    function of `ec_pallas._round_kernel`.  `mul`: the Montgomery product
+    (`mont_mul_mxu` for kernel 5's plain version; the limbs are the same).
 
     Algorithm 7 (and algorithm 1) with (X2, Y2, Z2) = (0, 1, 0) reduces to
     (X1*Y1 : Y1*Y1 : Z1*Y1): every other product is zero, and the field ops
@@ -251,9 +260,9 @@ def bucket_round_add_plain(buckets, rows, found, ctx: CurveCtx):
     idle = torch.nonzero(found == 0).squeeze(1)
     out = torch.empty_like(buckets)
     out[:, :, live] = ec_add_plain(buckets[:, :, live], delta[:, :, live],
-                                   ctx)
+                                   ctx, mul=mul)
     P = buckets[:, :, idle].transpose(0, 1)          # (L, 3, k)
-    out[:, :, idle] = mont_mul(P, P[:, 1:2], ctx.fp).transpose(0, 1)
+    out[:, :, idle] = mul(P, P[:, 1:2], ctx.fp).transpose(0, 1)
     return out
 
 
@@ -264,4 +273,63 @@ def bucket_round_add(buckets, rows, found, ctx: CurveCtx):
         return bucket_round_add_plain(buckets, rows, found, ctx)
     acc32, rows32, found32 = pack_rounds(buckets, rows, found)
     bucket_round_add32(acc32, rows32, found32, ctx)
+    return unpack32(acc32, 1)
+
+
+# ---------------------------------------------------------------------------
+# Kernel 5: one bucket round, the REDC products as int8 Toeplitz products
+# ---------------------------------------------------------------------------
+
+def _mxu_words(ctx: CurveCtx):
+    """Kernel 5's tables as uint32 words, the layout of
+    `csrc/mxu_kernels.cu`: the N' and N tables (int8 entries, 4 a word,
+    little-endian), their int32 row constants, then the modulus words."""
+    (tm, cm), (tn, cn) = mxu_tables(ctx.fp)
+    words = lambda t: np.ascontiguousarray(t).view(np.uint8).view("<u4")
+    nl = ctx.fp.L // 2
+    return np.concatenate([words(tm).ravel(), words(tn).ravel(),
+                           cm.ravel().view(np.uint32),
+                           cn.ravel().view(np.uint32), _consts(ctx)[:nl]])
+
+
+_mxu_device = {}
+
+
+def _mxu_tables_on(ctx: CurveCtx, device):
+    """`_mxu_words` on `device`, made once per curve and card."""
+    key = (ctx.cv.name, str(device))
+    if key not in _mxu_device:
+        _mxu_device[key] = torch.as_tensor(
+            _mxu_words(ctx).view(np.int32), device=device)
+    return _mxu_device[key]
+
+
+def bucket_round_add_mxu_plain(buckets, rows, found, ctx: CurveCtx):
+    """`bucket_round_add_plain` with every Montgomery product through
+    `field.mont_mul_mxu` (separated REDC, the fixed-operand halves as
+    Toeplitz products in int64): the same limbs, the function of
+    `ec_pallas._round_kernel_mxu`."""
+    return bucket_round_add_plain(buckets, rows, found, ctx,
+                                  mul=mont_mul_mxu)
+
+
+def bucket_round_add_mxu32(acc32, rows32, found32, ctx: CurveCtx):
+    """Kernel 5 on operands already packed by `pack_rounds`: acc32
+    (3, NL, S) is updated in place by one round."""
+    _require_card("bucket_round_add_mxu", ctx, acc32, rows32, found32)
+    tables = _mxu_tables_on(ctx, acc32.device)
+    _launch("bp_bucket_round_add_mxu", "bucket_round_add_mxu",
+            acc32.data_ptr(), rows32.data_ptr(), found32.data_ptr(),
+            found32.shape[0], ctx.fp.L // 2, _consts(ctx).ctypes.data,
+            tables.data_ptr())
+
+
+def bucket_round_add_mxu(buckets, rows, found, ctx: CurveCtx):
+    """Kernel 5 (`bp_bucket_round_add_mxu`); see
+    `bucket_round_add_mxu_plain`."""
+    _check_round(buckets, rows, found, ctx)
+    if not _on_card(buckets, "bucket_round_add_mxu", ctx):
+        return bucket_round_add_mxu_plain(buckets, rows, found, ctx)
+    acc32, rows32, found32 = pack_rounds(buckets, rows, found)
+    bucket_round_add_mxu32(acc32, rows32, found32, ctx)
     return unpack32(acc32, 1)

@@ -246,6 +246,94 @@ def mont_mul(a, b, ctx: FieldCtx):
                            (1 << 40) - 1)[:L]
 
 
+# ---------------------------------------------------------------------------
+# Montgomery product with the REDC's fixed-operand products as int8 Toeplitz
+# matrix products: the plain version of kernel 5's product (the JAX
+# package's `field_jax.mont_mul_mxu` and `_mxu_tables`)
+# ---------------------------------------------------------------------------
+
+def mxu_tables(ctx: FieldCtx):
+    """Toeplitz tables of the REDC's two fixed-operand products over bytes,
+    with L8 = 2L byte limbs: (T_lo * N') mod R is an (L8, L8) map and m * N
+    a (2*L8, L8) map, N' = -p^-1 mod R.  For y = T @ x with byte entries,
+    both sides are biased by -128 to fit int8 exactly:
+      y = (T-128) @ (x-128) + 128*rowsum(T-128) + 128*sum(x-128) + 16384*L8
+    Returns ((Ts_m, const_m), (Ts_n, const_n)): int8 tables and int32
+    (rows, 1) row constants, entry for entry the JAX package's."""
+    if hasattr(ctx, "_mxu"):
+        return ctx._mxu
+    L8 = 2 * ctx.L
+    R = 1 << (LIMB_BITS * ctx.L)
+    n_prime = (-pow(ctx.mod_int, -1, R)) % R
+
+    def toeplitz(v, out_rows):
+        limbs8 = [(v >> (8 * i)) & 0xFF for i in range(L8)]
+        T = np.zeros((out_rows, L8), np.int64)
+        for k in range(out_rows):
+            for i in range(L8):
+                if 0 <= k - i < L8:
+                    T[k, i] = limbs8[k - i]
+        Ts = T - 128
+        const = (128 * Ts.sum(axis=1) + 16384 * L8).astype(np.int32)
+        return Ts.astype(np.int8), const[:, None]
+
+    ctx._mxu = (toeplitz(n_prime, L8), toeplitz(ctx.mod_int, 2 * L8))
+    return ctx._mxu
+
+
+def _toeplitz_apply(table, x8):
+    """Byte limbs x8 (L8, *batch) -> T @ x8 as exact int64 byte-base
+    columns (rows, *batch), through the biased int8 table and its row
+    constants, one multiply-add per input byte."""
+    Ts, const = table
+    xs = x8 - 128
+    Ts_t = torch.as_tensor(Ts.astype(np.int64), device=x8.device)
+    shape = (Ts.shape[0],) + (1,) * (x8.ndim - 1)
+    y = torch.as_tensor(const.astype(np.int64), device=x8.device).reshape(
+        shape) + 128 * xs.sum(0, keepdim=True)
+    y = y.expand((Ts.shape[0],) + x8.shape[1:]).clone()
+    for i in range(Ts.shape[1]):
+        y.addcmul_(Ts_t[:, i].reshape(shape), xs[i:i + 1])
+    return y
+
+
+def _to_bytes(a):
+    """(K, *batch) 16-bit limbs -> (2K, *batch) byte limbs."""
+    return torch.stack([a & 0xFF, a >> 8], dim=1).flatten(0, 1)
+
+
+def _byte_carry(cols):
+    """Byte-base columns -> their value mod 256^len as canonical bytes."""
+    out = []
+    carry = torch.zeros_like(cols[0])
+    for k in range(cols.shape[0]):
+        v = cols[k] + carry
+        out.append(v & 0xFF)
+        carry = v >> 8
+    return torch.stack(out, dim=0)
+
+
+def mont_mul_mxu(a, b, ctx: FieldCtx):
+    """The Montgomery product a*b*R^-1 mod p of `mont_mul`, limb for limb,
+    with separated REDC: T = a*b in columns, then m = (T_lo * N') mod R and
+    m * N as byte Toeplitz products (`mxu_tables`), (T + m*N) / R and one
+    conditional subtraction."""
+    L = ctx.L
+    a, b = _bcast(a, b)
+    t = a.new_zeros((2 * L,) + a.shape[1:])
+    for i in range(L):
+        t[i:i + L].addcmul_(b, a[i:i + 1])
+    t_norm = _normalize(t, 2 * L, L * LIMB_MASK * LIMB_MASK)
+    tm, tn = mxu_tables(ctx)
+    m8 = _byte_carry(_toeplitz_apply(tm, _to_bytes(t_norm[:L])))
+    mn = _toeplitz_apply(tn, m8)                     # (4L,) byte columns
+    mn16 = mn[0::2] + (mn[1::2] << 8)                # (2L,) 16-bit columns
+    # (T + m*N) / R < 2p: the low L limbs cancel, carries flow up
+    summed = _normalize(mn16 + t_norm, 2 * L + 1, (1 << 32) - 1)
+    return _carry_sub_norm(summed[L:], ctx.on("mod", a.device), L + 1,
+                           LIMB_MASK)[:L]
+
+
 def mul_small(a, k: int, ctx: FieldCtx):
     """a * k for a small Python int k by double-and-add of mod-adds (the
     curve constants b3, 3*b3)."""

@@ -1,9 +1,10 @@
 """Host scalar field F_r: the port's own copy of `Scalar` from
 `bulletproofs_tpu/ops/field_host.py`, over exact Python integers.
 
-Only what the MSM, the IPA and their tests need is kept: construction,
-reduction, byte conversion, the ring operations and the vector helpers
-`inner_product`, `hadamard_product` and `batch_invert`.
+Only what the MSM, the IPA, the R1CS prover and verifier and their tests
+need is kept: construction, reduction, byte conversion, the ring operations
+and the vector helpers `random_scalars`, `inner_product`,
+`hadamard_product` and `batch_invert`.
 """
 
 import hashlib
@@ -150,6 +151,10 @@ def _val(o):
     if isinstance(o, int):
         return o
     return NotImplemented
+
+
+def random_scalars(n, rng=None, cv=None):
+    return [Scalar.random(rng, cv) for _ in range(n)]
 
 
 def inner_product(a, b):

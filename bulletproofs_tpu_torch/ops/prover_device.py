@@ -1,14 +1,22 @@
-"""Device inner-product argument prover with implicit basis folding: the
-port of the IPA part of `bulletproofs_tpu/ops/prover_device.py`.
+"""Device provers: the port of `bulletproofs_tpu/ops/prover_device.py`,
+the R1CS prover `prove_device` and the inner-product argument it ends in.
 
-The reference folds the G/H bases every round (`ipp.rs:115-130`).  Here the
-folded bases are never built: after j rounds the folded basis is
+R1CS (`prover.rs:322-593`).  The host keeps circuit construction, the
+Fiat-Shamir transcript, the rng draws and the few single-point Pedersen
+commitments (host ladders on the port's `G1`, where the JAX package calls
+its native library).  The O(n) work runs on the device: the witness
+commitments (masked tree sums through kernel 3 for bit-structured
+witnesses, else the device Pippenger `ops/msm.py: msm_hybrid`), the z-fold
+of the constraint rows as a gather and a tree sum, the l(x), r(x) and
+t(x) vector polynomials, and the IPA.
+
+IPA.  The reference folds the G/H bases every round (`ipp.rs:115-130`).
+Here the folded bases are never built: after j rounds the folded basis is
 G'_i = sum_{k = i mod n_j} rG_k G_k, with rG_k a per-original-point running
 product of challenges.  Each round's L and R commitments are then ONE
 two-set MSM over the fixed table [G | H | Q | identity] with masked scalar
-vectors, through the device Pippenger (`ops/msm.py: msm_hybrid`) and its
-CUDA bucket kernels; the masked half of every vector is zero, so the
-scheduler never adds it.  The Fiat-Shamir transcript stays on the host.
+vectors, through the device Pippenger and its CUDA bucket kernels; the
+masked half of every vector is zero, so the scheduler never adds it.
 
 All scalar work is plain PyTorch on F_r limbs in Montgomery form
 (`ops/field.py`), as the JAX package does it in XLA.  Values are canonical
@@ -16,20 +24,25 @@ at every step, so the port and the JAX package agree limb for limb and the
 proofs are byte-identical.
 
 `BP_PROFILE=1` (or `_prof.enabled = True`) accumulates the seconds of the
-stages `ipa_scal`, `ipa_msm`, `ipa_transcript` and `ipa_final` in `_prof`
-(read them with `_prof.take()`); on a card each timed stage synchronizes
-before it reads the clock.
+stages (`phase1_convert`, `phase1_msm`, `zfold`, `tpoly`, `t_commits`,
+`ipa_scal`, `ipa_msm`, `ipa_transcript`, `ipa_final`) in `_prof` (read them
+with `_prof.take()`); a stage nested in another is counted in its own label
+only, and on a card each timed stage synchronizes before it reads the
+clock.
 """
 
 import os
 import time
 
+import numpy as np
 import torch
 
 from ..config import curve
 from . import field as fd
 from . import msm as msm_mod
-from .ec import CurveCtx, content_digest, to_device_points_affine
+from .ec import (CurveCtx, content_digest, from_device_points,
+                 to_device_points_affine, to_device_scalars)
+from .ec_kernels import ec_add
 from .field_host import Scalar
 
 
@@ -58,7 +71,10 @@ def _sync(device):
 
 
 class _timed:
-    """`with _timed(label, device):` adds the block's seconds to `_prof`."""
+    """`with _timed(label, device):` adds the block's seconds to `_prof`,
+    less the seconds of the stages timed inside it."""
+
+    _open = []                    # the enclosing timed blocks, innermost last
 
     def __init__(self, label, device=None):
         self.label = label
@@ -67,12 +83,18 @@ class _timed:
     def __enter__(self):
         if _prof.enabled:
             _sync(self.device)
+            self.inner = 0.0
+            self._open.append(self)
             self.t0 = time.perf_counter()
 
     def __exit__(self, *exc):
         if _prof.enabled:
             _sync(self.device)
-            _prof.add(self.label, time.perf_counter() - self.t0)
+            dt = time.perf_counter() - self.t0
+            self._open.pop()
+            if self._open:
+                self._open[-1].inner += dt
+            _prof.add(self.label, dt - self.inner)
         return False
 
 
@@ -84,11 +106,6 @@ def _mont(fr, vals, device):
     """Host Scalars or ints -> (Lr, n) Montgomery tensor on `device`."""
     return fr.to_mont([v.v if hasattr(v, "v") else int(v) for v in vals],
                       device)
-
-
-def _plain1(v, fr, device):
-    """One host int -> (Lr, 1) plain-form limbs on `device`."""
-    return torch.as_tensor(fd.ints_to_limbs([v], fr.L), device=device)
 
 
 def _inner_mont(a, b, fr):
@@ -230,8 +247,8 @@ def _create_ipp_per_round(transcript, Gf_m, Hf_m, pts_dev, A, B, ctx,
             L_vec.append(L)
             R_vec.append(R)
             u = transcript.challenge_scalar(b"u")
-            u_p = _plain1(u.v, fr, dev)
-            u_inv_p = _plain1(u.inverse().v, fr, dev)
+            u_p = to_device_scalars([u], ctx, dev)
+            u_inv_p = to_device_scalars([u.inverse()], ctx, dev)
         n_j //= 2
 
     if u_p is None:               # n == 1: no rounds, nothing to fold
@@ -286,3 +303,404 @@ class _PtsCache:
 
 
 _pts_cache = _PtsCache()
+
+
+# ---------------------------------------------------------------------------
+# R1CS: powers, z-fold, vector polynomials (prover.rs:142-184, 458-488)
+# ---------------------------------------------------------------------------
+
+def _pow_table(x_m, q, fr):
+    """x (Lr, 1) Montgomery -> (Lr, q) powers [x^1, x^2, ..., x^q]: log2(q)
+    full-width passes, the power-of-two squarings of x combined per index
+    bit."""
+    n_bits = max(1, (q - 1).bit_length())
+    out = x_m.expand(fr.L, q)
+    iota = torch.arange(q, device=x_m.device)
+    sq = x_m
+    for k in range(n_bits):
+        out = torch.where(((iota >> k) & 1) == 1, fd.mont_mul(out, sq, fr),
+                          out)
+        if k + 1 < n_bits:
+            sq = fd.mont_mul(sq, sq, fr)
+    return out
+
+
+def _pow_shifted(x_m, n, fr):
+    """[1, x, x^2, ..., x^{n-1}] (Lr, n) from x (Lr, 1) Montgomery."""
+    one = fr.on("one_m", x_m.device)
+    if n == 1:
+        return one
+    return torch.cat([one, _pow_table(x_m, n - 1, fr)], dim=-1)
+
+
+def build_zfold_tables(constraints, n, m, include_one=False):
+    """Host bookkeeping for the z-fold: per variable, its constraint rows
+    and coefficients as a dense (width, T) table, T the most terms of one
+    variable.  Returns {kind: (rows int64 (width, T), valid bool (width, T),
+    coeffs (width*T ints), T, width)}, width n for the multiplier kinds, m
+    for COMMITTED and 1 for ONE (include_one: the verifier's constant term,
+    `verifier.rs:149-193`; the prover skips it)."""
+    from ..r1cs.linear_combination import (COMMITTED, MULT_LEFT,
+                                           MULT_OUTPUT, MULT_RIGHT, ONE)
+    per = {MULT_LEFT: [[] for _ in range(n)],
+           MULT_RIGHT: [[] for _ in range(n)],
+           MULT_OUTPUT: [[] for _ in range(n)],
+           COMMITTED: [[] for _ in range(m)]}
+    if include_one:
+        per[ONE] = [[]]
+    for q_i, lc in enumerate(constraints):
+        for var, coeff in lc.terms:
+            table = per.get(var.kind)
+            if table is not None:
+                table[0 if var.kind == ONE else var.index].append(
+                    (q_i, coeff))
+    out = {}
+    for kind, table in per.items():
+        T = max(1, max((len(t) for t in table), default=1))
+        width = len(table)
+        rows = np.zeros((width, T), dtype=np.int64)
+        valid = np.zeros((width, T), dtype=bool)
+        coeffs = []
+        for v_i, terms in enumerate(table):
+            for t_i, (q_i, c) in enumerate(terms):
+                rows[v_i, t_i] = q_i
+                valid[v_i, t_i] = True
+                coeffs.append(c)
+            coeffs.extend([0] * (T - len(terms)))
+        out[kind] = (rows, valid, coeffs, T, width)
+    return out
+
+
+def _zfold_kernel(zpow_rows, rows, valid, coeff_m, fr, T, width):
+    """w[v] = sum_t z^(rows[v, t] + 1) * coeff[v, t] over the valid terms:
+    zpow_rows (q, Lr) Montgomery z^1..z^q, rows/valid (width, T), coeff_m
+    (Lr, width*T) Montgomery -> (Lr, width) Montgomery."""
+    zp = zpow_rows[rows.reshape(-1)].transpose(0, 1)       # (Lr, width*T)
+    prod = fd.mont_mul(zp, coeff_m, fr).reshape(fr.L, width, T)
+    prod = torch.where(valid[None], prod, 0)
+    t = T
+    while t > 1:                       # tree sum over the (tiny) T axis
+        half = (t + 1) // 2
+        right = prod[..., half:t]
+        if right.shape[-1] < half:
+            right = torch.cat([right, right.new_zeros(
+                right.shape[:-1] + (half - right.shape[-1],))], dim=-1)
+        prod = fd.add_mod(prod[..., :half], right, fr)
+        t = half
+    return prod[..., 0]
+
+
+def zfold_device(tables, z, q, fr, padded_n, device):
+    """The z-fold of the constraint rows (`prover.rs:142-184`) on `device`:
+    -> wL, wR, wO (Lr, padded_n) and wV (Lr, m) Montgomery, V terms
+    negated, and wc (Lr, 1), the negated constant term, or None when the
+    tables have no ONE kind."""
+    from ..r1cs.linear_combination import (COMMITTED, MULT_LEFT,
+                                           MULT_OUTPUT, MULT_RIGHT, ONE)
+    zpow_rows = _pow_table(_mont(fr, [z], device), max(q, 1),
+                           fr).transpose(0, 1)              # (q, Lr)
+    outs = {}
+    for kind, (rows, valid, coeffs, T, width) in tables.items():
+        outs[kind] = _zfold_kernel(
+            zpow_rows, torch.as_tensor(rows, device=device),
+            torch.as_tensor(valid, device=device),
+            fr.to_mont(coeffs, device), fr, T, width)
+
+    def pad(w):
+        return torch.cat([w, w.new_zeros((fr.L, padded_n - w.shape[-1]))],
+                         dim=-1)
+
+    wc = fd.neg_mod(outs[ONE], fr) if ONE in outs else None
+    return (pad(outs[MULT_LEFT]), pad(outs[MULT_RIGHT]),
+            pad(outs[MULT_OUTPUT]), fd.neg_mod(outs[COMMITTED], fr), wc)
+
+
+def _t_poly_kernel(aL, aR, aO, sL, sR, wL, wR, wO, y_m, y_inv_m, fr):
+    """t(x) = <l(x), r(x)> (`vector_poly.rs:79-97`): all vectors (Lr, N)
+    Montgomery, y and its inverse (Lr, 1).  Returns (t1..t6 as (Lr, 6), the
+    coefficient vectors l1, l2, l3, r0, r1, r3, and y^-i (Lr, N)).  y^-1
+    comes from the host: the JAX function's Fermat ladder would cost ~500
+    Montgomery products here, and the inverse is unique."""
+    N = aL.shape[-1]
+    y_pows = _pow_shifted(y_m, N, fr)                # [1, y, .., y^{N-1}]
+    y_inv_pows = _pow_shifted(y_inv_m, N, fr)
+
+    l1 = fd.add_mod(aL, fd.mont_mul(y_inv_pows, wR, fr), fr)
+    l2 = aO
+    l3 = sL
+    r0 = fd.sub_mod(wO, y_pows, fr)
+    r1 = fd.add_mod(fd.mont_mul(y_pows, aR, fr), wL, fr)
+    r3 = fd.mont_mul(y_pows, sR, fr)
+
+    # l0 = 0 and r2 = 0: 9 pairwise inner products in one stacked pass
+    lhs = torch.stack([l1, l1, l2, l2, l3, l1, l3, l2, l3], dim=1)
+    rhs = torch.stack([r0, r1, r0, r1, r0, r3, r1, r3, r3], dim=1)
+    ips = _inner_mont(lhs, rhs, fr)[..., 0]          # (Lr, 9)
+    t2_t4 = fd.add_mod(ips[:, [1, 3, 5]], ips[:, [2, 4, 6]], fr)
+    t16 = torch.cat([ips[:, 0:1], t2_t4, ips[:, 7:9]], dim=1)
+    return t16, l1, l2, l3, r0, r1, r3, y_inv_pows
+
+
+def _lr_eval_kernel(l1, l2, l3, r0, r1, r3, x_m, fr):
+    """l(x) = x(l1 + x(l2 + x l3)); r(x) = r0 + x(r1 + x^2 r3)."""
+    mul, add = fd.mont_mul, fd.add_mod
+    lx = mul(x_m, add(l1, mul(x_m, add(l2, mul(x_m, l3, fr), fr), fr), fr),
+             fr)
+    x2 = mul(x_m, x_m, fr)
+    rx = add(r0, mul(x_m, add(r1, mul(x2, r3, fr), fr), fr), fr)
+    return lx, rx
+
+
+# ---------------------------------------------------------------------------
+# R1CS: witness commitments (prover.rs:336-366)
+# ---------------------------------------------------------------------------
+
+def _masked_sums(points, masks, ctx):
+    """points (3, L, n) Montgomery, masks (S, n) bool -> (3, L, S): the sum
+    of the points each mask selects, by a log2(n) tree of complete adds,
+    each level one call of kernel 3 (`ec_kernels.ec_add`).  Unselected
+    points and the padding to a power of two are the identity."""
+    S, n = masks.shape
+    L = points.shape[1]
+    ident = ctx.identity_like((1,), points.device)           # (3, L, 1)
+    sel = torch.where(masks[:, None, None, :], points[None], ident[None])
+    sel = sel.permute(1, 2, 0, 3)                            # (3, L, S, n)
+    m = 1 << (n - 1).bit_length()
+    if m != n:
+        sel = torch.cat([sel, ident[:, :, None].expand(3, L, S, m - n)],
+                        dim=3)
+    while m > 1:
+        half = m // 2
+        sel = ec_add(sel[..., :half].contiguous(),
+                     sel[..., half:].contiguous(), ctx)
+        m = half
+    return sel[..., 0]
+
+
+def _bit_structure(vals, r):
+    """Classify a host scalar vector: 'bits' (all in {0, 1}), 'negbits'
+    (all in {0, r-1}), or None (general)."""
+    bits = negbits = True
+    for v in vals:
+        x = v.v if hasattr(v, "v") else int(v)
+        if x not in (0, 1):
+            bits = False
+        if x != 0 and x != r - 1:
+            negbits = False
+        if not bits and not negbits:
+            return None
+    return "bits" if bits else "negbits"
+
+
+def _phase_commitments(aL, aR, aO, blinds, s_L, s_R, pts, h, ctx,
+                       affine=False):
+    """A_I, A_O and S of one phase (`prover.rs:336-366`) over the device
+    table pts (3, L, 2n+1) = [G_n | H_n | h].
+
+    Bit-structured witnesses (a_L and a_O bit vectors, a_R a {0, 1} or
+    {0, -1} vector: every bit-decomposition gadget) take masked tree sums
+    for A_I and A_O, and the Pippenger only for the random S; a general
+    witness takes one 3-set `msm_hybrid`.  The group elements, and so the
+    transcript bytes, are the same either way."""
+    dev = pts.device
+    n = len(aL)
+    i_blind, o_blind, s_blind = blinds
+    r = ctx.cv.r
+    sL_cls = _bit_structure(aL, r)
+    sR_cls = _bit_structure(aR, r)
+    sO_cls = _bit_structure(aO, r)
+    if not (sL_cls == "bits" and sO_cls == "bits"
+            and sR_cls in ("bits", "negbits")):
+        zero_n = [0] * n
+        sets = torch.stack([to_device_scalars(v, ctx, dev) for v in (
+            aL + aR + [i_blind], aO + zero_n + [o_blind],
+            s_L + s_R + [s_blind])], dim=0)
+        return msm_mod.msm_hybrid(pts, sets, ctx, affine=affine)
+
+    def bitmask(vals):
+        return [(v.v if hasattr(v, "v") else int(v)) != 0 for v in vals]
+
+    zeros = [False] * n
+    masks = torch.as_tensor([bitmask(aL) + zeros + [False],   # A_I, G half
+                             zeros + bitmask(aR) + [False],   # A_I, H half
+                             bitmask(aO) + zeros + [False]],  # A_O, G half
+                            device=dev)
+    g_sum, h_sum, o_sum = from_device_points(
+        _masked_sums(pts, masks, ctx), ctx)
+    if sR_cls == "negbits":
+        h_sum = -h_sum
+    with _timed("t_commits", dev):
+        bh, bo = h * i_blind, h * o_blind
+    (S,) = msm_mod.msm_hybrid(
+        pts, to_device_scalars(s_L + s_R + [s_blind], ctx, dev)[None], ctx,
+        affine=affine)
+    return g_sum + h_sum + bh, o_sum + bo, S
+
+
+def _phase_table(G, H, h, ctx, device):
+    """[G | H | h] on `device` and whether it is affine."""
+    Gd, affG = _pts_cache.get(G, ctx, device)
+    Hd, affH = _pts_cache.get(H, ctx, device)
+    hd, affh = to_device_points_affine([h], ctx, device)
+    return torch.cat([Gd, Hd, hd], dim=2), affG and affH and affh
+
+
+# ---------------------------------------------------------------------------
+# R1CS: the device prover
+# ---------------------------------------------------------------------------
+
+def prove_device(prover, G, H, device="cuda"):
+    """`Prover.prove` (`prover.rs:322-593`) on `device`: the transcript and
+    blinding schedule of the JAX package's `Prover._prove` and
+    `prove_device`, so the proof bytes are theirs for the same rng."""
+    from ..r1cs.proof import R1CSProof
+    from ..ipp import InnerProductArgumentProof
+    from ..utils.errors import InvalidGeneratorsLength
+    from ..utils.vector_poly import Poly6
+    from .ec_host import commit_to_field_element
+    from .field_host import inner_product, random_scalars
+
+    tr = prover.transcript
+    rng = prover.rng
+    cv = prover.g.cv
+    ctx = CurveCtx(cv)
+    fr = ctx.fr
+    dev = torch.device(device)
+
+    tr.append_u64(b"m", len(prover.v))
+
+    n1 = len(prover.a_L)
+    if len(G) < n1:
+        raise InvalidGeneratorsLength()
+
+    i_blinding1 = Scalar.random(rng)
+    o_blinding1 = Scalar.random(rng)
+    s_blinding1 = Scalar.random(rng)
+    s_L1 = random_scalars(n1, rng)
+    s_R1 = random_scalars(n1, rng)
+
+    with _timed("phase1_convert", dev):
+        pts1, aff1 = _phase_table(G[:n1], H[:n1], prover.h, ctx, dev)
+    with _timed("phase1_msm", dev):
+        A_I1, A_O1, S1 = _phase_commitments(
+            prover.a_L, prover.a_R, prover.a_O,
+            (i_blinding1, o_blinding1, s_blinding1), s_L1, s_R1, pts1,
+            prover.h, ctx, affine=aff1)
+
+    tr.commit_point(b"A_I1", A_I1)
+    tr.commit_point(b"A_O1", A_O1)
+    tr.commit_point(b"S1", S1)
+
+    prover._create_randomized_constraints()
+
+    n = len(prover.a_L)
+    n2 = n - n1
+    padded_n = 1 if n == 0 else 1 << (n - 1).bit_length()
+    pad = padded_n - n
+    if len(G) < padded_n:
+        raise InvalidGeneratorsLength()
+
+    if n2 > 0:
+        i_blinding2 = Scalar.random(rng)
+        o_blinding2 = Scalar.random(rng)
+        s_blinding2 = Scalar.random(rng)
+    else:
+        i_blinding2 = o_blinding2 = s_blinding2 = Scalar.zero()
+    s_L2 = random_scalars(n2, rng)
+    s_R2 = random_scalars(n2, rng)
+
+    if n2 > 0:
+        pts2, aff2 = _phase_table(G[n1:n], H[n1:n], prover.h, ctx, dev)
+        A_I2, A_O2, S2 = _phase_commitments(
+            prover.a_L[n1:], prover.a_R[n1:], prover.a_O[n1:],
+            (i_blinding2, o_blinding2, s_blinding2), s_L2, s_R2, pts2,
+            prover.h, ctx, affine=aff2)
+    else:
+        A_I2 = A_O2 = S2 = type(prover.g).identity(cv)
+
+    tr.commit_point(b"A_I2", A_I2)
+    tr.commit_point(b"A_O2", A_O2)
+    tr.commit_point(b"S2", S2)
+
+    y = tr.challenge_scalar(b"y")
+    z = tr.challenge_scalar(b"z")
+
+    with _timed("zfold", dev):
+        tables = build_zfold_tables(prover.constraints, n, len(prover.v))
+        wL, wR, wO, wV_m, _ = zfold_device(tables, z, len(prover.constraints),
+                                           fr, padded_n, dev)
+
+    with _timed("tpoly", dev):
+        zpad = [0] * pad
+        N = padded_n
+        stacked = _mont(fr, prover.a_L + zpad + prover.a_R + zpad
+                        + prover.a_O + zpad + s_L1 + s_L2 + zpad
+                        + s_R1 + s_R2 + zpad + [y, y.inverse()], dev)
+        aL_m, aR_m, aO_m, sL_m, sR_m = (stacked[:, k * N:(k + 1) * N]
+                                        for k in range(5))
+        t16, l1, l2, l3, r0, r1, r3, y_inv_pows = _t_poly_kernel(
+            aL_m, aR_m, aO_m, sL_m, sR_m, wL, wR, wO,
+            stacked[:, 5 * N:5 * N + 1], stacked[:, 5 * N + 1:], fr)
+        t_poly = Poly6(*[Scalar(v, cv) for v in fr.from_mont(t16)])
+
+    t_blindings = [Scalar.random(rng) for _ in range(5)]   # t_1, t_3..t_6
+    g_, h_ = prover.g, prover.h
+    with _timed("t_commits", dev):
+        T_1, T_3, T_4, T_5, T_6 = [
+            commit_to_field_element(g_, h_, t, b) for t, b in zip(
+                [t_poly.t1, t_poly.t3, t_poly.t4, t_poly.t5, t_poly.t6],
+                t_blindings)]
+
+    tr.commit_point(b"T_1", T_1)
+    tr.commit_point(b"T_3", T_3)
+    tr.commit_point(b"T_4", T_4)
+    tr.commit_point(b"T_5", T_5)
+    tr.commit_point(b"T_6", T_6)
+
+    u = tr.challenge_scalar(b"u")
+    x = tr.challenge_scalar(b"x")
+
+    wV = [Scalar(v, cv) for v in fr.from_mont(wV_m)]
+    t_2_blinding = inner_product(wV, prover.v_blinding)
+    t_1b, t_3b, t_4b, t_5b, t_6b = t_blindings
+    t_blinding_poly = Poly6(t_1b, t_2_blinding, t_3b, t_4b, t_5b, t_6b)
+
+    t_x = t_poly.eval(x)
+    t_x_blinding = t_blinding_poly.eval(x)
+    l_vec, r_vec = _lr_eval_kernel(l1, l2, l3, r0, r1, r3,
+                                   _mont(fr, [x], dev), fr)
+
+    i_blinding = i_blinding1 + u * i_blinding2
+    o_blinding = o_blinding1 + u * o_blinding2
+    s_blinding = s_blinding1 + u * s_blinding2
+    e_blinding = x * (i_blinding + x * (o_blinding + x * s_blinding))
+
+    tr.commit_scalar(b"t_x", t_x)
+    tr.commit_scalar(b"t_x_blinding", t_x_blinding)
+    tr.commit_scalar(b"e_blinding", e_blinding)
+
+    w = tr.challenge_scalar(b"w")
+    with _timed("t_commits", dev):
+        Q = g_ * w
+
+    # G_factors = [1]*n1 + [u]*(n2+pad); H_factors = y^-i * G_factors
+    Gf_m = torch.cat([fr.on("one_m", dev).expand(fr.L, n1),
+                      _mont(fr, [u], dev).expand(fr.L, n2 + pad)], dim=-1)
+    Hf_m = fd.mont_mul(y_inv_pows, Gf_m, fr)
+
+    Gdi, affGi = _pts_cache.get(G[:padded_n], ctx, dev)
+    Hdi, affHi = _pts_cache.get(H[:padded_n], ctx, dev)
+    Qdi, affQi = to_device_points_affine([Q], ctx, dev)
+    # the identity column's scalars are always zero: never scheduled
+    pts_ipa = torch.cat([Gdi, Hdi, Qdi, ctx.identity_like((1,), dev)],
+                        dim=2)
+    L_vec, R_vec, a_fin, b_fin = _create_ipp_per_round(
+        tr, Gf_m, Hf_m, pts_ipa, l_vec, r_vec, ctx,
+        affine=affGi and affHi and affQi)
+
+    return R1CSProof(A_I1=A_I1, A_O1=A_O1, S1=S1, A_I2=A_I2, A_O2=A_O2,
+                     S2=S2, T_1=T_1, T_3=T_3, T_4=T_4, T_5=T_5, T_6=T_6,
+                     t_x=t_x, t_x_blinding=t_x_blinding,
+                     e_blinding=e_blinding,
+                     ipp_proof=InnerProductArgumentProof(
+                         L=L_vec, R=R_vec, a=a_fin, b=b_fin))

@@ -1,18 +1,21 @@
 """Drive the PyTorch/CUDA port on one NVIDIA card: build its kernels, hold
 each kernel against its plain PyTorch version, and run the n = 2^16 device
-Pippenger MSM and the n = 2^16 inner-product argument (prove and verify) of
-BLS12-381 G1 end to end.
+Pippenger MSM, the n = 2^16 inner-product argument (prove and verify) and
+the aggregated range proof (R1CS prove and verify, m = 16 values of 64
+bits, n = 2048) of BLS12-381 G1 end to end.
 
     python3 chip_smoke.py [--seed S] [--n N]
 
 Phases, each printing one JSON line with its seconds:
   0 device   the card's name and power limit (nvidia-smi);
-  1 build    nvcc of csrc/ec_kernels.cu into a ctypes library;
+  1 build    nvcc of csrc/ec_kernels.cu and csrc/mxu_kernels.cu, in
+             parallel, into ctypes libraries;
   2 kernels  each kernel against its plain version at the width each path
-             gives it (bit-exact), with the bare kernel's time on operands
-             packed beforehand (`ms`), the wrapper's time with its 16/32-bit
-             limb packing (`wrapper_ms`), the plain version's time and the
-             card's bound for the same work;
+             gives it (bit-exact; kernel 5 also against kernel 4), with the
+             bare kernel's time on operands packed beforehand (`ms`), the
+             wrapper's time with its 16/32-bit limb packing
+             (`wrapper_ms`), the plain version's time and the card's bound
+             for the same work;
   3 msm_uniform    n random-scalar MSM (the bench's input: 256 base points
                    repeated) through `msm_hybrid`, 1 + 3 runs, and through
                    `msm_device` (the path of the public `msm`), 1 + 3 runs,
@@ -27,18 +30,30 @@ Phases, each printing one JSON line with its seconds:
              not use the device verifier, `verify_ipp` 1 + 3 times, a
              tampered proof rejected, and one proof with the per-round
              bucket kernel, byte-identical to the chunked one;
-  6 launches the launch counts of each path (phases 3-4, phase 5), each
+  6 r1cs     the bench's config 2: m = 16 aggregated 64-bit range proofs,
+             n = 2048, `get_generators("G"/"H", 2048)`: prove 1 + 3 times
+             (seeds 1-4), the stages of one more proof, the seed-2 proof's
+             sha256 against the JAX package's
+             (tests/vectors/torch_r1cs_agg16.json), a host check through
+             `Verifier._verify` over `msm_host`, `verify_device` 1 + 3
+             times, and t_x + 1 rejected;
+  7 mxu_race one per-round bucket pass of the IPA MSM (its rounds over
+             S slots) through kernel 5 and through kernel 4, in turns, with
+             microseconds per round and the buckets bit-exact at the end;
+  8 launches the launch counts of each path (phases 3-4, 5, 6, 7), each
              kernel of a path required > 0 there.
 The last line is {"ok": true, "device": {...}}.  Any failure raises and
 exits non-zero before it.  Without a CUDA card the script exits 2.
 """
 
 import argparse
+import hashlib
 import json
 import random
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
 
@@ -53,6 +68,7 @@ from bulletproofs_tpu_torch.ops.ec import (CurveCtx, content_digest,
                                            to_device_points,
                                            to_device_points_affine,
                                            to_device_scalars)
+from bulletproofs_tpu_torch.models import bound_check
 from bulletproofs_tpu_torch.ops.field import pack32
 from bulletproofs_tpu_torch.ops.ec_host import G1, msm_host
 from bulletproofs_tpu_torch.ops.field_host import Scalar, inner_product
@@ -71,13 +87,23 @@ REPLACES = {
     "bucket_rounds_proj": "bulletproofs_tpu/ops/ec_pallas.py:355",
     "ec_add": "bulletproofs_tpu/ops/ec_pallas.py:499",
     "bucket_round_add": "bulletproofs_tpu/ops/ec_pallas.py:469",
+    "bucket_round_add_mxu": "bulletproofs_tpu/ops/ec_pallas.py:217",
 }
-# The kernels each path launches: the MSM phases 3-4 and the IPA phase 5.
+SOURCES = {name: KERNEL_SOURCE for name in REPLACES}
+SOURCES["bucket_round_add_mxu"] = "bulletproofs_tpu_torch/csrc/mxu_kernels.cu"
+# The kernels each path launches: the MSM phases 3-4, the IPA phase 5, the
+# range proof phase 6 and the race of kernels 5 and 4 (phase 7).
 PATHS = {
     "msm": ("bucket_rounds_mixed", "bucket_rounds_proj", "ec_add"),
     "ipa": ("bucket_rounds_mixed", "ec_add", "bucket_round_add"),
+    "r1cs": ("bucket_rounds_mixed", "ec_add"),
+    "mxu_race": ("bucket_round_add_mxu", "bucket_round_add"),
 }
 N_BASE = 256
+# The JAX package's config-2 proof digest (seed 2), made by
+# tests/test_torch_r1cs.py::test_agg16_reference_digest
+R1CS_REFERENCE = Path(__file__).resolve().parent / "tests" / "vectors" \
+    / "torch_r1cs_agg16.json"
 
 
 def n_base(n):
@@ -148,12 +174,12 @@ def phase_device():
 
 def phase_build():
     t0 = time.time()
-    path, report = build.build()
+    reports = build.build()
     build.load()
-    ptxas = [ln.strip() for ln in report.splitlines()
-             if "registers" in ln or "spill" in ln]
-    emit({"phase": "build", "library": str(path.name), "ptxas": ptxas,
-          "seconds": time.time() - t0})
+    ptxas = {path.name: [ln.strip() for ln in report.splitlines()
+                         if "registers" in ln or "spill" in ln]
+             for path, report in reports.items()}
+    emit({"phase": "build", "ptxas": ptxas, "seconds": time.time() - t0})
 
 
 def _random_points(rnd, m, cv):
@@ -281,6 +307,11 @@ def phase_kernels(device, n, seed, reps=5):
          ek.bucket_round_add_plain, (buckets_round, rows_ipa, found_ipa),
          ek.bucket_round_add32, rounds_work(found_ipa, 3 * nl, 3),
          {"S": S_ipa}),
+        # kernel 5: the same round on the same inputs, so kernel 4's bound
+        ("bucket_round_add_mxu", ek.bucket_round_add_mxu,
+         ek.bucket_round_add_mxu_plain,
+         (buckets_round, rows_ipa, found_ipa), ek.bucket_round_add_mxu32,
+         rounds_work(found_ipa, 3 * nl, 3), {"S": S_ipa}),
     ]
     records = {}
     for (name, kernel, plain, args, bare, (n_bytes, n_imad),
@@ -304,7 +335,7 @@ def phase_kernels(device, n, seed, reps=5):
                 launch = lambda: bare(*packed, ctx)   # in place; same work
             ms, _ = time_ms(launch, device, reps)
         bound_ms, bound_by = bound(n_bytes, n_imad)
-        rec = {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
+        rec = {"name": name, "route": "cuda", "source": SOURCES[name],
                "replaces": REPLACES[name], "max_abs_err": err, "ms": ms,
                "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
@@ -317,6 +348,13 @@ def phase_kernels(device, n, seed, reps=5):
                  "bound_ms": bound_ms})
         else:
             records[name] = {**rec, "shape": shape}
+
+    # kernel 5 computes kernel 4's function: the same limbs
+    round_args = (buckets_round, rows_ipa, found_ipa, ctx)
+    if not torch.equal(ek.bucket_round_add_mxu(*round_args),
+                       ek.bucket_round_add(*round_args)):
+        raise AssertionError("bucket_round_add_mxu differs from "
+                             "bucket_round_add")
 
     # independent spot check of the batched add against host ints
     picks = [0, 1, 2, 3, n_add - 1]
@@ -390,11 +428,10 @@ def phase_msm(device, n, seed, bits, reps):
           "seconds": time.time() - t0})
 
 
-def _ipa_input(n, seed):
-    """The bench's config-3 input (`bench.py` config3): m = n_base(n)
-    hash-derived G and H bases repeated to n, Q, unit factors, uniform a
-    and b; and P = <a, G> + <b, H> + <a, b> Q from one host MSM over the
-    2m + 1 distinct points."""
+def _ipa_bases(n, seed):
+    """The bench's config-3 bases and vectors (`bench.py` config3):
+    m = n_base(n) hash-derived G and H bases (repeated to n by the
+    callers), Q, and uniform a and b."""
     cv = BLS381
     m = n_base(n)
     Gb = [G1.from_msg_hash(b"G%d" % i, cv) for i in range(m)]
@@ -403,6 +440,14 @@ def _ipa_input(n, seed):
     rnd = random.Random(seed)
     a = [Scalar.random(rnd, cv) for _ in range(n)]
     b = [Scalar.random(rnd, cv) for _ in range(n)]
+    return Gb, Hb, Q, a, b
+
+
+def _ipa_input(n, seed):
+    """`_ipa_bases` with unit factors and P = <a, G> + <b, H> + <a, b> Q
+    from one host MSM over the 2m + 1 distinct points."""
+    Gb, Hb, Q, a, b = _ipa_bases(n, seed)
+    m = len(Gb)
     P = msm_host(Gb + Hb + [Q], _collapse(a, m) + _collapse(b, m)
                  + [inner_product(a, b).v])
     return Gb, Hb, Q, a, b, P
@@ -533,6 +578,196 @@ def phase_ipa(device, n, seed, reps):
           "a": proof.a.to_bytes().hex()[-32:], "seconds": time.time() - t0})
 
 
+def _agg_range_prover(seed, m, bits, g, h, device):
+    """The bench's config-2 statement (`bench.py:581-590`): m values of
+    `bits` bits, each bound-checked in [0, 2^bits - 1] on one Prover, with
+    the bench's rng order.  -> (prover, commitments per value)."""
+    rng = random.Random(seed)
+    vs = [rng.randrange(1 << (bits - 1)) for _ in range(m)]
+    prover = bt.Prover(g, h, bt.ProofTranscript(b"AggRange"), rng=rng,
+                       device=device)
+    comms = [bound_check.prove_bounded_num(v, None, 0, (1 << bits) - 1,
+                                           bits, rng, prover) for v in vs]
+    return prover, comms
+
+
+def _agg_range_verifier(comms, bits, device):
+    verifier = bt.Verifier(bt.ProofTranscript(b"AggRange"), device=device)
+    for c in comms:
+        bound_check.verify_bounded_num(0, (1 << bits) - 1, bits, c,
+                                       verifier)
+    return verifier
+
+
+def phase_r1cs(device, m, bits, reps, ref):
+    """The aggregated range proof through the port's entry points: `Prover`
+    with `models.bound_check`, `Prover.prove`, `Verifier.verify`.
+    ref: {"seed", "sha256"} of the JAX package's proof for this statement;
+    the proof of that seed must have that digest."""
+    t0 = time.time()
+    n = m * 2 * bits
+    cv = BLS381
+    G = bt.get_generators("G", n)
+    H = bt.get_generators("H", n)
+    g, h = G1.from_msg_hash(b"g", cv), G1.from_msg_hash(b"h", cv)
+    setup = time.time() - t0
+
+    per_call = {}
+
+    def counted(kind, fn):
+        before = dict(ek.launches)
+        out = fn()
+        per_call[kind] = {k: v - before[k] for k, v in ek.launches.items()}
+        return out
+
+    def prove(seed, profile=False):
+        """-> (proof, commitments, prove seconds); profile: the stages'
+        seconds go to `prover_device._prof`."""
+        prover, comms = _agg_range_prover(seed, m, bits, g, h, device)
+        prover_device._prof.enabled = profile
+        t1 = time.time()
+        try:
+            proof = counted("prove", lambda: prover.prove(G, H))
+        finally:
+            prover_device._prof.enabled = False
+        return proof, comms, time.time() - t1
+
+    seeds = [1, 2, 3, 4][:1 + reps]
+    runs = {seed: prove(seed) for seed in seeds}
+    if ref["seed"] not in runs:
+        raise AssertionError(f"r1cs: no proof of the reference seed "
+                             f"{ref['seed']}")
+    proof, comms, _ = runs[ref["seed"]]
+    digest = hashlib.sha256(proof.to_bytes()).hexdigest()
+    if digest != ref["sha256"]:
+        raise AssertionError(f"r1cs: proof of seed {ref['seed']} has sha256 "
+                             f"{digest}, the JAX package's {ref['sha256']}")
+    prover_device._prof.take()
+    again, _, staged = prove(ref["seed"], profile=True)
+    stages = prover_device._prof.take()
+    stages["other"] = staged - sum(stages.values())
+    if again.to_bytes() != proof.to_bytes():
+        raise AssertionError("r1cs: proofs of one input differ")
+
+    t1 = time.time()
+    _agg_range_verifier(comms, bits, device)._verify(proof, g, h, G, H)
+    host_check = time.time() - t1
+
+    def verify(pf):
+        verifier = _agg_range_verifier(comms, bits, device)
+        t1 = time.time()
+        counted("verify", lambda: verifier.verify(pf, g, h, G, H))
+        return time.time() - t1
+
+    verify_first = verify(proof)
+    vtimes = [verify(proof) for _ in range(reps)]
+    bad = bt.R1CSProof.from_bytes(proof.to_bytes())
+    bad.t_x = bad.t_x + Scalar.one(cv)
+    try:
+        verify(bad)
+    except VerificationError:
+        pass
+    else:
+        raise AssertionError("r1cs: a tampered proof (t_x + 1) verified")
+
+    warm = sorted(runs[sd][2] for sd in seeds[1:]) or [runs[1][2]]
+    p50 = lambda ts: ts[len(ts) // 2]
+    emit({"phase": "r1cs", "m": m, "bits": bits, "n": n,
+          "r1cs_prove_first_seconds": runs[1][2],
+          "r1cs_prove_seconds_p50": p50(warm),
+          "r1cs_prove_stage_seconds": stages,
+          "r1cs_verify_first_seconds": verify_first,
+          "r1cs_verify_seconds_p50": p50(sorted(vtimes) or [verify_first]),
+          "proof_sha256": digest, "reference_seed": ref["seed"],
+          "matches_reference": True, "host_check_seconds": host_check,
+          "tampered_rejected": True, "launches_per_call": per_call,
+          "setup_seconds": setup, "seconds": time.time() - t0})
+
+
+def _ipa_round_schedule(n, seed, device):
+    """The bucket rounds of the IPA's first two-set MSM at n, as
+    `msm.bucket_accumulate` plans them: -> (projective rows of the table
+    [G | H | Q | identity] (2n+2, 3L), per-round row ids (R, S), found
+    (R, S))."""
+    ctx = CurveCtx(BLS381)
+    fr = ctx.fr
+    L = ctx.fp.L
+    Gb, Hb, Q, a, b = _ipa_bases(n, seed)
+    k = len(Gb)
+    pts = [Gb[i % k] for i in range(n)] + [Hb[i % k] for i in range(n)]
+    table, _ = to_device_points_affine(pts + [Q], ctx, device)
+    table = torch.cat([table, ctx.identity_like((1,), device)], dim=2)
+    mont = lambda v: prover_device._mont(fr, v, device)
+    ones = mont([1] * n)
+    scal2 = prover_device._ipa_round_scalars(mont(a), mont(b), ones, ones,
+                                             n, fr)
+    c = msm_mod.pick_window(2 * n + 2)
+    rounds = msm_mod.occupancy_guess(n + 1, ctx, c)
+    ranges, splits, dup = msm_mod.window_plan(ctx, c, n_sets=2, dup=True)
+    digits = msm_mod._spread_dup_rows(msm_mod._digits_multi(scal2, ctx, c),
+                                      dup)
+    grid, found, occ = msm_mod._slot_grid(digits, 1 << c, rounds, ranges,
+                                          splits)
+    if occ > rounds:
+        raise AssertionError(f"mxu_race: occupancy {occ} > {rounds} rounds")
+    rows = table.permute(2, 0, 1).reshape(2 * n + 2, 3 * L)
+    ids = grid.reshape(rounds, -1).clamp(max=2 * n + 1)
+    return rows, ids, found.reshape(rounds, -1).to(torch.int32)
+
+
+def phase_mxu_race(device, n, seed):
+    """One per-round bucket pass of the IPA MSM through kernel 5 and kernel
+    4, in turns (4, 5, 5, 4): microseconds per round of each, and the
+    final buckets bit-exact.  On the card the rounds' rows are packed
+    beforehand and the bare launches are timed; on the CPU the wrappers
+    run their plain versions."""
+    t0 = time.time()
+    device = torch.device(device)
+    ctx = CurveCtx(BLS381)
+    rows, ids, found = _ipa_round_schedule(n, seed, device)
+    R, S = found.shape
+    ident = ctx.identity_like((S,), device)
+    on_card = device.type == "cuda"
+    if on_card:
+        rows32 = [pack32(rows[ids[r]], 1).contiguous() for r in range(R)]
+        found32 = found.contiguous()
+    kernels = {"bucket_round_add": (ek.bucket_round_add,
+                                    ek.bucket_round_add32),
+               "bucket_round_add_mxu": (ek.bucket_round_add_mxu,
+                                        ek.bucket_round_add_mxu32)}
+
+    def run(name):
+        wrapper, bare = kernels[name]
+        if on_card:
+            acc = pack32(ident, 1).contiguous()
+            for r in range(R):
+                bare(acc, rows32[r], found32[r], ctx)
+            return acc
+        acc = ident
+        for r in range(R):
+            acc = wrapper(acc, rows[ids[r]], found[r], ctx)
+        return acc
+
+    us, out = {}, {}
+    for name in ("bucket_round_add", "bucket_round_add_mxu",
+                 "bucket_round_add_mxu", "bucket_round_add"):
+        ms, out[name] = time_ms(lambda: run(name), device, 1)
+        us.setdefault(name, []).append(ms * 1e3 / R)
+    if not torch.equal(out["bucket_round_add"],
+                       out["bucket_round_add_mxu"]):
+        raise AssertionError("mxu_race: kernel 5's buckets differ from "
+                             "kernel 4's")
+    emit({"phase": "mxu_race", "n": n, "rounds": R, "S": S,
+          "occupied_slots": int(found.sum()),
+          "us_per_round": {k: sum(v) / len(v) for k, v in us.items()},
+          "us_per_round_turns": us, "timed": "bare launches" if on_card
+          else "plain versions (CPU)", "buckets_identical": True,
+          "tpu_v5e_context_only": {
+              "bucket_round_add_pallas_mxu_us": 662,
+              "bucket_round_add_pallas_us": 512, "source": "NOTES.md:408"},
+          "seconds": time.time() - t0})
+
+
 def _run_path(name, drive):
     """Drive one path with the launch counts at 0 and read them after:
     -> the path's counts; each kernel of the path must have launched."""
@@ -564,10 +799,15 @@ def main():
             phase_msm("cuda", args.n, args.seed, bits=False, reps=3)
             phase_msm("cuda", args.n, args.seed + 1, bits=True, reps=3)
 
+        ref = json.loads(R1CS_REFERENCE.read_text())
         by_path = {
             "msm": _run_path("msm", msm_path),
             "ipa": _run_path("ipa", lambda: phase_ipa(
                 "cuda", args.n, args.seed + 2, reps=3)),
+            "r1cs": _run_path("r1cs", lambda: phase_r1cs(
+                "cuda", ref["m"], ref["bits"], 3, ref)),
+            "mxu_race": _run_path("mxu_race", lambda: phase_mxu_race(
+                "cuda", args.n, args.seed + 3)),
         }
         for name, rec in records.items():
             rec["launches"] = sum(c[name] for c in by_path.values())

@@ -1,7 +1,8 @@
-"""The port's CUDA kernels, MSM and IPA on the card: each kernel against
-its plain PyTorch version, limb for limb, the MSM against exact-int host
-sums, and an IPA proof against the port's own CPU run, byte for byte.
-Every test is marked `cuda` and skips without a card.
+"""The port's CUDA kernels, MSM, IPA and R1CS proofs on the card: each
+kernel against its plain PyTorch version, limb for limb (kernel 5 also
+against kernel 4), the MSM against exact-int host sums, and IPA and range
+proofs against the port's own CPU runs, byte for byte.  Every test is
+marked `cuda` and skips without a card.
 
 This file imports neither jax nor the JAX package, so on a machine without
 JAX it runs without the suite's conftest:
@@ -140,11 +141,12 @@ def test_msm_entry_on_card(cuda_device):
 
 
 @pytest.mark.cuda
-def test_bucket_round_add_matches_plain_on_card(cuda_device):
+@pytest.mark.parametrize("curve", sorted(CURVES))
+def test_bucket_round_add_matches_plain_on_card(curve, cuda_device):
     """Kernel 4 at the slot count of the n = 2^16 IPA's two-set MSM
     (66 rows of 256 buckets), wrapped and bare."""
     S = 16896
-    ctx, acc, rows, found, _ = _round_inputs(BLS381, 12, S, 2, 3,
+    ctx, acc, rows, found, _ = _round_inputs(CURVES[curve], 12, S, 2, 3,
                                              cuda_device)
     rows, found = rows[:S].contiguous(), found[0].contiguous()
     ek.reset_launches()
@@ -159,35 +161,106 @@ def test_bucket_round_add_matches_plain_on_card(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("curve", sorted(CURVES))
+def test_bucket_round_add_mxu_matches_plain_and_kernel4_on_card(
+        curve, cuda_device):
+    """Kernel 5 at S = 16896: bit-exact against its plain version and
+    against kernel 4 on the same inputs, wrapped and bare."""
+    S = 16896
+    ctx, acc, rows, found, _ = _round_inputs(CURVES[curve], 13, S, 2, 3,
+                                             cuda_device)
+    rows, found = rows[:S].contiguous(), found[0].contiguous()
+    acc[:, :, -1] = rows[-1].reshape(3, ctx.fp.L)          # P + P
+    found[-1] = 1
+    ek.reset_launches()
+    got = ek.bucket_round_add_mxu(acc, rows, found, ctx)
+    k4 = ek.bucket_round_add(acc, rows, found, ctx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, k4)
+    assert torch.equal(got, ek.bucket_round_add_mxu_plain(acc, rows, found,
+                                                          ctx))
+    bare, rows32, found32 = ek.pack_rounds(acc, rows, found)
+    ek.bucket_round_add_mxu32(bare, rows32, found32, ctx)
+    assert torch.equal(unpack32(bare, 1), k4)
+    assert ek.launches["bucket_round_add_mxu"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("curve", sorted(CURVES))
 @pytest.mark.parametrize("ec_kernel", ["chunk", "round"])
-def test_ipa_on_card_matches_cpu(ec_kernel, cuda_device):
+def test_ipa_on_card_matches_cpu(ec_kernel, curve, cuda_device):
     """An n = 256 IPA proved on the card is byte-identical to the port's
     CPU proof of the same input, and verifies on the card."""
-    cv = BLS381
+    cv = CURVES[curve]
     n = 256
     rnd = random.Random(40)
-    G, H = bt.get_generators("G", n), bt.get_generators("H", n)
-    Q = bt.G1.from_msg_hash(b"Q", cv)
-    a = [bt.Scalar.random(rnd, cv) for _ in range(n)]
-    b = [bt.Scalar.random(rnd, cv) for _ in range(n)]
-    Gf = [bt.Scalar.random(rnd, cv) for _ in range(n)]
-    Hf = [bt.Scalar.random(rnd, cv) for _ in range(n)]
-    args = (Q, Gf, Hf, G, H, a, b)
-    proofs = {}
-    for dev in ("cpu", "cuda"):
-        tr = bt.ProofTranscript(b"card")
+    with bt.using_curve(cv):
+        G, H = bt.get_generators("G", n), bt.get_generators("H", n)
+        Q = bt.G1.from_msg_hash(b"Q", cv)
+        a = [bt.Scalar.random(rnd, cv) for _ in range(n)]
+        b = [bt.Scalar.random(rnd, cv) for _ in range(n)]
+        Gf = [bt.Scalar.random(rnd, cv) for _ in range(n)]
+        Hf = [bt.Scalar.random(rnd, cv) for _ in range(n)]
+        args = (Q, Gf, Hf, G, H, a, b)
+        proofs = {}
+        for dev in ("cpu", "cuda"):
+            tr = bt.ProofTranscript(b"card")
+            ek.reset_launches()
+            proof = bt.create_ipp(tr, *args, device=dev,
+                                  ec_kernel=ec_kernel)
+            proofs[dev] = ([p.to_bytes() for p in proof.L],
+                           [p.to_bytes() for p in proof.R], proof.a.v,
+                           proof.b.v, tr.challenge_scalar(b"post").v)
+        key = "bucket_round_add" if ec_kernel == "round" \
+            else "bucket_rounds_mixed"
+        assert ek.launches[key] > 0
+        assert proofs["cuda"] == proofs["cpu"]
+        P = bt.msm_host(G + H + [Q],
+                        [x * f for x, f in zip(a, Gf)]
+                        + [x * f for x, f in zip(b, Hf)]
+                        + [inner_product(a, b)])
+        bt.verify_ipp(n, bt.ProofTranscript(b"card"), Gf, Hf, P, Q, G, H,
+                      proof.a, proof.b, proof.L, proof.R)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("curve", sorted(CURVES))
+def test_r1cs_on_card_matches_cpu(curve, cuda_device):
+    """An aggregated range proof (m = 2 values of 8 bits, n = 32) proved on
+    the card is byte-identical to the port's CPU proof for the same rng,
+    the card verifier accepts it, and rejects t_x + 1."""
+    from bulletproofs_tpu_torch.models import bound_check
+    from bulletproofs_tpu_torch.utils.errors import VerificationError
+    cv = CURVES[curve]
+    m, bits = 2, 8
+    with bt.using_curve(cv):
+        G, H = bt.get_generators("G", 32), bt.get_generators("H", 32)
+        g, h = bt.G1.from_msg_hash(b"g"), bt.G1.from_msg_hash(b"h")
+
+        def prove(dev):
+            rng = random.Random(77)
+            vs = [rng.randrange(1 << bits) for _ in range(m)]
+            p = bt.Prover(g, h, bt.ProofTranscript(b"AggRange"), rng=rng,
+                          device=dev)
+            comms = [bound_check.prove_bounded_num(
+                v, None, 0, (1 << bits) - 1, bits, rng, p) for v in vs]
+            return p.prove(G, H), comms
+
+        def verify(proof, comms):
+            v = bt.Verifier(bt.ProofTranscript(b"AggRange"))
+            for c in comms:
+                bound_check.verify_bounded_num(0, (1 << bits) - 1, bits, c,
+                                               v)
+            v.verify(proof, g, h, G, H)
+
         ek.reset_launches()
-        proof = bt.create_ipp(tr, *args, device=dev, ec_kernel=ec_kernel)
-        proofs[dev] = ([p.to_bytes() for p in proof.L],
-                       [p.to_bytes() for p in proof.R], proof.a.v,
-                       proof.b.v, tr.challenge_scalar(b"post").v)
-    key = "bucket_round_add" if ec_kernel == "round" \
-        else "bucket_rounds_mixed"
-    assert ek.launches[key] > 0
-    assert proofs["cuda"] == proofs["cpu"]
-    P = bt.msm_host(G + H + [Q],
-                    [x * f for x, f in zip(a, Gf)]
-                    + [x * f for x, f in zip(b, Hf)]
-                    + [inner_product(a, b)])
-    bt.verify_ipp(n, bt.ProofTranscript(b"card"), Gf, Hf, P, Q, G, H,
-                  proof.a, proof.b, proof.L, proof.R)
+        proof, comms = prove("cuda")
+        assert ek.launches["ec_add"] > 0
+        assert ek.launches["bucket_rounds_mixed"] > 0
+        want, _ = prove("cpu")
+        assert proof.to_bytes() == want.to_bytes()
+        verify(proof, comms)
+        bad = bt.R1CSProof.from_bytes(proof.to_bytes())
+        bad.t_x = bad.t_x + bt.Scalar(1)
+        with pytest.raises(VerificationError):
+            verify(bad, comms)

@@ -1,5 +1,5 @@
-"""The port's three CUDA kernels (bulletproofs_tpu_torch/ops/ec_kernels.py)
-held against the JAX package's TPU kernels they replace.
+"""The port's CUDA kernels (bulletproofs_tpu_torch/ops/ec_kernels.py) held
+against the JAX package's TPU kernels they replace.
 
 On the CPU the wrappers run their plain PyTorch versions; those are compared
 with the Pallas kernels run in interpret mode (BP_PALLAS_INTERPRET=1, as
@@ -150,7 +150,8 @@ def test_wrappers_reject_mismatched_shapes():
         ek.ec_add(buckets, buckets[:, :, :4], ctx)
 
 
-@pytest.mark.parametrize("kernel", ["mixed", "proj", "ec_add"])
+@pytest.mark.parametrize("kernel", ["mixed", "proj", "ec_add", "round",
+                                    "round_mxu"])
 def test_packed_launches_refuse_cpu_tensors(kernel):
     """The `*32` functions only launch: given CPU tensors they raise and
     count nothing, with no plain version to fall back to."""
@@ -167,8 +168,114 @@ def test_packed_launches_refuse_cpu_tensors(kernel):
     with pytest.raises(ValueError):
         if kernel == "ec_add":
             ek.ec_add32(acc32, acc32, ctx)
+        elif kernel == "round":
+            ek.bucket_round_add32(acc32, rows32, found32[0], ctx)
+        elif kernel == "round_mxu":
+            ek.bucket_round_add_mxu32(acc32, rows32, found32[0], ctx)
         elif kernel == "mixed":
             ek.bucket_rounds_mixed32(acc32, rows32, found32, ctx)
         else:
             ek.bucket_rounds_proj32(acc32, rows32, found32, ctx)
     assert ek.launches == {k: 0 for k in ek.launches}
+
+
+# ---------------------------------------------------------------------------
+# Kernel 5: the int8-Toeplitz REDC (`bucket_round_add_pallas_mxu`).  Its
+# Pallas body is not run in interpret mode here: the plain Pallas round
+# kernel alone compiles for minutes on the CPU.  The product is held
+# against `field_jax.mont_mul_mxu` (XLA), the round against kernel 4's
+# plain version.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("curve", sorted(CURVES))
+def test_mxu_tables_match_field_jax(curve):
+    from bulletproofs_tpu.ops import field_jax as fj
+    from bulletproofs_tpu_torch.ops import field as F
+    cv, jcv = CURVES[curve]
+    got = F.mxu_tables(F.FieldCtx(cv.fp))
+    want = fj._mxu_tables(fj.FieldCtx(jcv.fp))
+    for (Ts, const), (jTs, jconst) in zip(got, want):
+        assert Ts.dtype == np.int8 and const.dtype == np.int32
+        np.testing.assert_array_equal(Ts, jTs)
+        np.testing.assert_array_equal(const, jconst)
+
+
+@pytest.mark.parametrize("curve", sorted(CURVES))
+def test_mont_mul_mxu_matches_field_jax_and_cios(curve):
+    """Seeded operands with 0, 1 and p - 1 among them."""
+    from bulletproofs_tpu.ops import field_jax as fj
+    from bulletproofs_tpu_torch.ops import field as F
+    cv, jcv = CURVES[curve]
+    p = cv.p
+    rs = np.random.default_rng(17)
+    vals = [0, 1, p - 1, p - 2] + [
+        int.from_bytes(rs.bytes(cv.modbytes), "big") % p for _ in range(28)]
+    ctx = F.FieldCtx(cv.fp)
+    A = F.ints_to_limbs(vals, ctx.L)
+    B = F.ints_to_limbs(vals[::-1], ctx.L)
+    got = F.mont_mul_mxu(torch.as_tensor(A), torch.as_tensor(B), ctx)
+    assert torch.equal(got, F.mont_mul(torch.as_tensor(A),
+                                       torch.as_tensor(B), ctx))
+    want = fj.mont_mul_mxu(jnp.asarray(A.astype(np.uint32)),
+                           jnp.asarray(B.astype(np.uint32)),
+                           fj.FieldCtx(jcv.fp))
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(want).astype(np.int64))
+
+
+def test_bucket_round_add_mxu_plain_matches_kernel4_plain():
+    """S = 512 slots: half the accumulators at the identity, ~70% occupied,
+    one slot doubling; the kernel-5 wrapper on the CPU runs its plain
+    version and counts no launch."""
+    S = 512
+    acc, rows, found = _round_inputs(JBLS381, 23, S, 2, 3)
+    rows = rows[:S]
+    L = JBLS381.fp.n_limbs
+    acc[:, :, -1] = rows[-1].reshape(3, L)             # P + P
+    found[0, -1] = 1
+    ctx = E.CurveCtx(BLS381)
+    args = (E.from_jax_points(acc, "cpu"),
+            torch.as_tensor(rows.astype(np.int64)),
+            torch.as_tensor(found[0]), ctx)
+    ek.reset_launches()
+    got = ek.bucket_round_add_mxu(*args)
+    assert torch.equal(got, ek.bucket_round_add_mxu_plain(*args))
+    assert torch.equal(got, ek.bucket_round_add_plain(*args))
+    assert ek.launches == {k: 0 for k in ek.launches}
+
+
+def test_mxu_table_words_layout():
+    """The packed words the CUDA kernel reads: entry 4w + j of a table row
+    in byte j of word w, then the row constants and the modulus."""
+    ctx = E.CurveCtx(BN254)
+    nl = ctx.fp.L // 2
+    from bulletproofs_tpu_torch.ops import field as F
+    (tm, cm), (tn, cn) = F.mxu_tables(ctx.fp)
+    w = ek._mxu_words(ctx)
+    assert w.dtype == np.uint32 and w.shape == (12 * nl * nl + 13 * nl,)
+    k = 4 * nl * nl
+    np.testing.assert_array_equal(w[:k].view(np.int8).reshape(tm.shape), tm)
+    np.testing.assert_array_equal(
+        w[k:3 * k].view(np.int8).reshape(tn.shape), tn)
+    np.testing.assert_array_equal(w[3 * k:3 * k + 4 * nl].view(np.int32),
+                                  cm[:, 0])
+    np.testing.assert_array_equal(
+        w[3 * k + 4 * nl:3 * k + 12 * nl].view(np.int32), cn[:, 0])
+    assert sum(int(x) << (32 * i) for i, x in
+               enumerate(w[-nl:])) == BN254.p
+
+
+def test_chip_smoke_mxu_race_rehearses_on_cpu(capsys):
+    """chip_smoke.py's race of kernels 5 and 4 over the bucket rounds of
+    the n = 16 IPA's first MSM, on the CPU (plain versions, no launch):
+    the buckets agree at the end."""
+    import importlib
+    import json
+    chip_smoke = importlib.import_module("chip_smoke")
+    ek.reset_launches()
+    chip_smoke.phase_mxu_race("cpu", 16, 5)
+    assert ek.launches == {k: 0 for k in ek.launches}
+    line = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert line["phase"] == "mxu_race" and line["buckets_identical"]
+    assert set(line["us_per_round"]) == {"bucket_round_add",
+                                         "bucket_round_add_mxu"}
