@@ -1,0 +1,431 @@
+// Field and group arithmetic with kLanes = 4 cooperating lanes per field
+// element: 4 consecutive threads of one warp (a "group") hold one element,
+// lane j its K = NL / 4 words j*K .. j*K + K - 1.  The products use PTX
+// carry chains (carry.cuh); values cross lanes only by warp shuffles and
+// ballots.  Every function returns CANONICAL values (< p), the same words
+// as the one-thread functions of ec_common.cuh and the plain PyTorch
+// versions.
+//
+// Warp-uniform control flow.  The shuffles and ballots name the WHOLE warp
+// (mask 0xffffffff, width 4), so all 32 threads of a warp must call each
+// function together: a kernel does not let a group leave early or skip a
+// step alone, it computes the step for every group of the warp and keeps
+// the result by a per-group select (`warp_needs`).  Masks of single groups
+// would let groups diverge, but groups of one warp then take their
+// shuffles one mask at a time: on the H100 that made 4 lanes a slot slower
+// than one (PERF.md section 6).
+//
+// Carries between lanes.  A sum or difference is first formed per lane
+// (a K-word chain with a local carry or borrow out), then the carries
+// between lanes are resolved at once, as a carry-lookahead adder does: a
+// lane generates a carry, or passes an incoming one on when its words are
+// all ones (all zeros for a borrow); with those as the bits G and P of two
+// ballots, the carries into the lanes are the bits of (X + G) ^ X ^ G,
+// X = G | P.  Each lane then adds its one incoming bit.
+//
+// The Montgomery product is CIOS with the accumulator spread over the
+// lanes.  Each lane keeps, beside its K words, a two-word "spill" holding
+// what carried out of its top word; the spill is not passed on at once.
+// Each of the NL steps adds a_i * b and q * p (a_i broadcast from its
+// owner lane, q = t_0 * n0inv from lane 0, whose low word has no spill
+// below it and so is exact) and shifts the accumulator down one word:
+// lane j + 1's low word moves to lane j's top, where lane j's spill lands,
+// so the spill is folded in there.  One shift-down shuffle a step, and one
+// carry resolution after the last step.
+
+#pragma once
+
+#include <cstdint>
+
+#include "carry.cuh"
+#include "ec_common.cuh"
+
+namespace {
+
+constexpr uint32_t kWarp = 0xffffffffu;
+constexpr int kLanes = 4;       // lanes a group; divides 12 and 8 limbs
+static_assert(12 % kLanes == 0 && 8 % kLanes == 0,
+              "lanes must divide both limb counts");
+
+struct Lanes {
+    int base;        // the group's first lane in the warp
+    int j;           // this thread's lane in the group
+
+    __device__ __forceinline__ Lanes() {
+        const int lane = threadIdx.x & 31;
+        j = lane & (kLanes - 1);
+        base = lane - j;
+    }
+
+    // v of lane src of the group
+    __device__ __forceinline__ uint32_t bcast(uint32_t v, int src) const {
+        return __shfl_sync(kWarp, v, src, kLanes);
+    }
+
+    // v of lane j + 1; 0 on the top lane
+    __device__ __forceinline__ uint32_t from_next(uint32_t v) const {
+        const uint32_t r = __shfl_down_sync(kWarp, v, 1, kLanes);
+        return j == kLanes - 1 ? 0u : r;
+    }
+
+    // v of lane j - 1; 0 on lane 0
+    __device__ __forceinline__ uint32_t from_prev(uint32_t v) const {
+        const uint32_t r = __shfl_up_sync(kWarp, v, 1, kLanes);
+        return j == 0 ? 0u : r;
+    }
+
+    // bit i: the predicate of lane i of the group
+    __device__ __forceinline__ uint32_t ballot(bool p) const {
+        return (__ballot_sync(kWarp, p) >> base) & ((1u << kLanes) - 1u);
+    }
+};
+
+// Whether a step needed by this group where `p` must run: when p holds for
+// any group of the warp, since the whole warp runs each step (the caller
+// keeps the step's result only where p).
+__device__ __forceinline__ bool warp_needs(bool p) {
+    return __any_sync(kWarp, p);
+}
+
+// The field constants a lane needs: its words of p and of Montgomery one.
+template <int NL>
+struct FieldL {
+    static constexpr int K = NL / kLanes;
+    uint32_t p[K];
+    uint32_t one[K];
+    uint32_t n0inv;
+    uint32_t b3;
+
+    __device__ __forceinline__ FieldL(const Field<NL>& f, int j) {
+#pragma unroll
+        for (int k = 0; k < K; k++) {
+            p[k] = f.p[j * K + k];
+            one[k] = f.one[j * K + k];
+        }
+        n0inv = f.n0inv;
+        b3 = f.b3;
+    }
+};
+
+// r (the lane's K words of a sum formed lane by lane) and g, the lane's
+// carry out: propagate the carries between lanes; returns the carry out of
+// the top lane (the same on every lane).
+template <int K>
+__device__ __forceinline__ uint32_t carry_lanes(uint32_t* r, uint32_t g,
+                                                const Lanes& ln) {
+    bool ones = g == 0;
+#pragma unroll
+    for (int k = 0; k < K; k++) ones = ones && r[k] == 0xffffffffu;
+    const uint32_t G = ln.ballot(g != 0);
+    const uint32_t X = G | ln.ballot(ones);
+    const uint32_t C = (X + G) ^ X ^ G;       // bit i: carry into lane i
+    r[0] = add_cc(r[0], (C >> ln.j) & 1u);
+#pragma unroll
+    for (int k = 1; k < K; k++) r[k] = addc_cc(r[k], 0u);
+    return (C >> kLanes) & 1u;
+}
+
+// The same for a difference: b is the lane's borrow out, and a lane whose
+// words are all zero passes an incoming borrow on.
+template <int K>
+__device__ __forceinline__ uint32_t borrow_lanes(uint32_t* r, uint32_t b,
+                                                 const Lanes& ln) {
+    bool zeros = b == 0;
+#pragma unroll
+    for (int k = 0; k < K; k++) zeros = zeros && r[k] == 0u;
+    const uint32_t G = ln.ballot(b != 0);
+    const uint32_t X = G | ln.ballot(zeros);
+    const uint32_t C = (X + G) ^ X ^ G;       // bit i: borrow into lane i
+    r[0] = sub_cc(r[0], (C >> ln.j) & 1u);
+#pragma unroll
+    for (int k = 1; k < K; k++) r[k] = subc_cc(r[k], 0u);
+    return (C >> kLanes) & 1u;
+}
+
+// r = x - p if x >= p, else x, where c is the carry above x's top word.
+template <int NL>
+__device__ __forceinline__ void reduce_once_l(uint32_t* r, const uint32_t* x,
+                                              uint32_t c,
+                                              const FieldL<NL>& f,
+                                              const Lanes& ln) {
+    constexpr int K = NL / kLanes;
+    uint32_t d[K];
+    d[0] = sub_cc(x[0], f.p[0]);
+#pragma unroll
+    for (int k = 1; k < K; k++) d[k] = subc_cc(x[k], f.p[k]);
+    const uint32_t b = subc(0u, 0u) & 1u;
+    const uint32_t br = borrow_lanes<K>(d, b, ln);
+    const bool ge = c != 0 || br == 0;
+#pragma unroll
+    for (int k = 0; k < K; k++) r[k] = ge ? d[k] : x[k];
+}
+
+template <int NL>
+__device__ __forceinline__ void add_mod_l(uint32_t* r, const uint32_t* a,
+                                          const uint32_t* b,
+                                          const FieldL<NL>& f,
+                                          const Lanes& ln) {
+    constexpr int K = NL / kLanes;
+    uint32_t s[K];
+    s[0] = add_cc(a[0], b[0]);
+#pragma unroll
+    for (int k = 1; k < K; k++) s[k] = addc_cc(a[k], b[k]);
+    const uint32_t g = addc(0u, 0u);
+    const uint32_t c = carry_lanes<K>(s, g, ln);
+    reduce_once_l<NL>(r, s, c, f, ln);
+}
+
+template <int NL>
+__device__ __forceinline__ void sub_mod_l(uint32_t* r, const uint32_t* a,
+                                          const uint32_t* b,
+                                          const FieldL<NL>& f,
+                                          const Lanes& ln) {
+    constexpr int K = NL / kLanes;
+    uint32_t d[K];
+    d[0] = sub_cc(a[0], b[0]);
+#pragma unroll
+    for (int k = 1; k < K; k++) d[k] = subc_cc(a[k], b[k]);
+    const uint32_t bo = subc(0u, 0u) & 1u;
+    // a < b: add p back (the carry out of the top wraps it)
+    const uint32_t m = 0u - borrow_lanes<K>(d, bo, ln);
+    r[0] = add_cc(d[0], f.p[0] & m);
+#pragma unroll
+    for (int k = 1; k < K; k++) r[k] = addc_cc(d[k], f.p[k] & m);
+    const uint32_t g = addc(0u, 0u);
+    carry_lanes<K>(r, g, ln);
+}
+
+// t += x * y over the lane's K words; what carries out of the top word goes
+// into the spill s0 + 2^32 s1.
+template <int K>
+__device__ __forceinline__ void mac_row(uint32_t* t, uint32_t& s0,
+                                        uint32_t& s1, uint32_t x,
+                                        const uint32_t* y) {
+    static_assert(K >= 2, "a lane holds at least two words");
+    t[0] = mad_lo_cc(x, y[0], t[0]);
+#pragma unroll
+    for (int k = 1; k < K; k++) t[k] = madc_lo_cc(x, y[k], t[k]);
+    s0 = addc_cc(s0, 0u);
+    s1 = addc(s1, 0u);
+    t[1] = mad_hi_cc(x, y[0], t[1]);
+#pragma unroll
+    for (int k = 2; k < K; k++) t[k] = madc_hi_cc(x, y[k - 1], t[k]);
+    s0 = madc_hi_cc(x, y[K - 1], s0);
+    s1 = addc(s1, 0u);
+}
+
+// CIOS Montgomery product a*b*R^-1 mod p, canonical in and out.
+template <int NL>
+__device__ __forceinline__ void mont_mul_l(uint32_t* r, const uint32_t* a,
+                                           const uint32_t* b,
+                                           const FieldL<NL>& f,
+                                           const Lanes& ln) {
+    constexpr int K = NL / kLanes;
+    uint32_t t[K];
+#pragma unroll
+    for (int k = 0; k < K; k++) t[k] = 0u;
+    uint32_t s0 = 0u, s1 = 0u;
+#pragma unroll
+    for (int i = 0; i < NL; i++) {
+        const uint32_t ai = ln.bcast(a[i % K], i / K);
+        mac_row<K>(t, s0, s1, ai, b);
+        const uint32_t q = ln.bcast(t[0] * f.n0inv, 0);
+        mac_row<K>(t, s0, s1, q, f.p);
+        // divide by 2^32; lane 0's low word is now 0
+        const uint32_t down = ln.from_next(t[0]);
+#pragma unroll
+        for (int k = 0; k < K - 1; k++) t[k] = t[k + 1];
+        t[K - 1] = add_cc(down, s0);
+        s0 = addc(s1, 0u);
+        s1 = 0u;
+    }
+    // lane j - 1's spill lands on lane j's low word; the top lane's is the
+    // carry above word NL - 1.  The value is < 2p.
+    const uint32_t top = ln.bcast(s0, kLanes - 1);
+    t[0] = add_cc(t[0], ln.from_prev(s0));
+#pragma unroll
+    for (int k = 1; k < K; k++) t[k] = addc_cc(t[k], 0u);
+    const uint32_t g = addc(0u, 0u);
+    const uint32_t c = carry_lanes<K>(t, g, ln) + top;
+    reduce_once_l<NL>(r, t, c, f, ln);
+}
+
+// a * k for a small constant k, by double-and-add of mod-adds.
+template <int NL>
+__device__ __forceinline__ void mul_small_l(uint32_t* r, const uint32_t* a,
+                                            uint32_t k,
+                                            const FieldL<NL>& f,
+                                            const Lanes& ln) {
+    constexpr int K = NL / kLanes;
+    uint32_t acc[K];
+#pragma unroll
+    for (int i = 0; i < K; i++) acc[i] = a[i];
+    for (int bit = 30 - __clz(k); bit >= 0; bit--) {
+        add_mod_l<NL>(acc, acc, acc, f, ln);
+        if ((k >> bit) & 1) add_mod_l<NL>(acc, acc, a, f, ln);
+    }
+#pragma unroll
+    for (int i = 0; i < K; i++) r[i] = acc[i];
+}
+
+// The shared end of RCB16 algorithms 7 and 8 (see ec_common.cuh add_tail).
+template <int NL>
+__device__ __forceinline__ void add_tail_l(uint32_t* X3, uint32_t* Y3,
+                                           uint32_t* Z3, const uint32_t* xy,
+                                           const uint32_t* yz,
+                                           const uint32_t* xz,
+                                           const uint32_t* t0,
+                                           const uint32_t* m,
+                                           const uint32_t* n,
+                                           const FieldL<NL>& f,
+                                           const Lanes& ln) {
+    constexpr int K = NL / kLanes;
+    uint32_t u[K], v[K], w[K];
+    mont_mul_l<NL>(u, xy, m, f, ln);
+    mont_mul_l<NL>(v, yz, xz, f, ln);
+    mul_small_l<NL>(w, v, f.b3, f, ln);
+    sub_mod_l<NL>(X3, u, w, f, ln);         // xy*m - b3*yz*xz
+    mont_mul_l<NL>(u, n, m, f, ln);
+    mont_mul_l<NL>(v, t0, xz, f, ln);
+    mul_small_l<NL>(w, v, 3 * f.b3, f, ln);
+    add_mod_l<NL>(Y3, u, w, f, ln);         // n*m + 3b3*t0*xz
+    mont_mul_l<NL>(u, yz, n, f, ln);
+    mont_mul_l<NL>(v, t0, xy, f, ln);
+    mul_small_l<NL>(w, v, 3, f, ln);
+    add_mod_l<NL>(Z3, u, w, f, ln);         // yz*n + 3*t0*xy
+}
+
+// P1 += P2, complete projective add (RCB16 algorithm 7, 12 multiplies).
+template <int NL>
+__device__ __forceinline__ void ec_add_l(uint32_t* X1, uint32_t* Y1,
+                                         uint32_t* Z1, const uint32_t* X2,
+                                         const uint32_t* Y2,
+                                         const uint32_t* Z2,
+                                         const FieldL<NL>& f,
+                                         const Lanes& ln) {
+    constexpr int K = NL / kLanes;
+    uint32_t t0[K], t1[K], t2[K], xy[K], yz[K], xz[K], s1[K], s2[K];
+    mont_mul_l<NL>(t0, X1, X2, f, ln);
+    mont_mul_l<NL>(t1, Y1, Y2, f, ln);
+    mont_mul_l<NL>(t2, Z1, Z2, f, ln);
+    add_mod_l<NL>(s1, X1, Y1, f, ln);
+    add_mod_l<NL>(s2, X2, Y2, f, ln);
+    mont_mul_l<NL>(xy, s1, s2, f, ln);
+    sub_mod_l<NL>(xy, xy, t0, f, ln);
+    sub_mod_l<NL>(xy, xy, t1, f, ln);
+    add_mod_l<NL>(s1, Y1, Z1, f, ln);
+    add_mod_l<NL>(s2, Y2, Z2, f, ln);
+    mont_mul_l<NL>(yz, s1, s2, f, ln);
+    sub_mod_l<NL>(yz, yz, t1, f, ln);
+    sub_mod_l<NL>(yz, yz, t2, f, ln);
+    add_mod_l<NL>(s1, X1, Z1, f, ln);
+    add_mod_l<NL>(s2, X2, Z2, f, ln);
+    mont_mul_l<NL>(xz, s1, s2, f, ln);
+    sub_mod_l<NL>(xz, xz, t0, f, ln);
+    sub_mod_l<NL>(xz, xz, t2, f, ln);
+    mul_small_l<NL>(s1, t2, f.b3, f, ln);  // b3*t2
+    sub_mod_l<NL>(s2, t1, s1, f, ln);      // m
+    add_mod_l<NL>(t2, t1, s1, f, ln);      // n
+    add_tail_l<NL>(X1, Y1, Z1, xy, yz, xz, t0, s2, t2, f, ln);
+}
+
+// P1 += (X2, Y2, 1), complete mixed add (RCB16 algorithm 8, 11 multiplies).
+template <int NL>
+__device__ __forceinline__ void ec_madd_l(uint32_t* X1, uint32_t* Y1,
+                                          uint32_t* Z1, const uint32_t* X2,
+                                          const uint32_t* Y2,
+                                          const FieldL<NL>& f,
+                                          const Lanes& ln) {
+    constexpr int K = NL / kLanes;
+    uint32_t t0[K], t1[K], xy[K], yz[K], xz[K], s1[K], s2[K];
+    mont_mul_l<NL>(t0, X1, X2, f, ln);
+    mont_mul_l<NL>(t1, Y1, Y2, f, ln);
+    add_mod_l<NL>(s1, X1, Y1, f, ln);
+    add_mod_l<NL>(s2, X2, Y2, f, ln);
+    mont_mul_l<NL>(xy, s1, s2, f, ln);
+    sub_mod_l<NL>(xy, xy, t0, f, ln);
+    sub_mod_l<NL>(xy, xy, t1, f, ln);
+    mont_mul_l<NL>(yz, Y2, Z1, f, ln);
+    add_mod_l<NL>(yz, yz, Y1, f, ln);
+    mont_mul_l<NL>(xz, X2, Z1, f, ln);
+    add_mod_l<NL>(xz, xz, X1, f, ln);
+    mul_small_l<NL>(s1, Z1, f.b3, f, ln);  // b3*Z1
+    sub_mod_l<NL>(s2, t1, s1, f, ln);      // m
+    add_mod_l<NL>(s1, t1, s1, f, ln);      // n
+    add_tail_l<NL>(X1, Y1, Z1, xy, yz, xz, t0, s2, s1, f, ln);
+}
+
+// The lane's words of a coordinate-major point (3, NL, stride), column i.
+template <int NL>
+__device__ __forceinline__ void load_point_l(uint32_t* X, uint32_t* Y,
+                                             uint32_t* Z,
+                                             const uint32_t* base,
+                                             size_t stride, size_t i,
+                                             int j) {
+    constexpr int K = NL / kLanes;
+#pragma unroll
+    for (int k = 0; k < K; k++) {
+        const size_t w = (size_t)(j * K + k);
+        X[k] = base[w * stride + i];
+        Y[k] = base[(NL + w) * stride + i];
+        Z[k] = base[(2 * NL + w) * stride + i];
+    }
+}
+
+template <int NL>
+__device__ __forceinline__ void store_point_l(uint32_t* base, size_t stride,
+                                              size_t i, const uint32_t* X,
+                                              const uint32_t* Y,
+                                              const uint32_t* Z, int j) {
+    constexpr int K = NL / kLanes;
+#pragma unroll
+    for (int k = 0; k < K; k++) {
+        const size_t w = (size_t)(j * K + k);
+        base[w * stride + i] = X[k];
+        base[(NL + w) * stride + i] = Y[k];
+        base[(2 * NL + w) * stride + i] = Z[k];
+    }
+}
+
+// The identity (0 : 1 : 0).
+template <int NL>
+__device__ __forceinline__ void identity_l(uint32_t* X, uint32_t* Y,
+                                           uint32_t* Z,
+                                           const FieldL<NL>& f) {
+#pragma unroll
+    for (int k = 0; k < NL / kLanes; k++) {
+        X[k] = 0u;
+        Y[k] = f.one[k];
+        Z[k] = 0u;
+    }
+}
+
+template <int NL>
+__device__ __forceinline__ void copy_point_l(uint32_t* X, uint32_t* Y,
+                                             uint32_t* Z, const uint32_t* X2,
+                                             const uint32_t* Y2,
+                                             const uint32_t* Z2) {
+#pragma unroll
+    for (int k = 0; k < NL / kLanes; k++) {
+        X[k] = X2[k];
+        Y[k] = Y2[k];
+        Z[k] = Z2[k];
+    }
+}
+
+// (X, Y, Z) = (X2, Y2, Z2) where keep is false.
+template <int NL>
+__device__ __forceinline__ void select_point_l(uint32_t* X, uint32_t* Y,
+                                               uint32_t* Z, bool keep,
+                                               const uint32_t* X2,
+                                               const uint32_t* Y2,
+                                               const uint32_t* Z2) {
+#pragma unroll
+    for (int k = 0; k < NL / kLanes; k++) {
+        X[k] = keep ? X[k] : X2[k];
+        Y[k] = keep ? Y[k] : Y2[k];
+        Z[k] = keep ? Z[k] : Z2[k];
+    }
+}
+
+}  // namespace

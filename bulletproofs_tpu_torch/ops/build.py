@@ -4,7 +4,8 @@ a plain C interface, loaded with `ctypes`.  No PyTorch headers and no
 
 Each source of `SOURCES` is its own library: kernels 1-4 in
 `csrc/ec_kernels.cu`, kernel 5 in `csrc/mxu_kernels.cu`, both including
-`csrc/ec_common.cuh`.  The libraries are built at first CUDA use into
+`csrc/ec_common.cuh` (and ec_kernels.cu `csrc/ec_lanes.cuh` and
+`csrc/carry.cuh`).  The libraries are built at first CUDA use into
 `bulletproofs_tpu_torch/_build/` (listed in `.gitignore`), one `nvcc` per
 source, all started together; each is named by a hash of its source, the
 shared header and the flags, so an edited source builds anew and an
@@ -15,6 +16,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -27,16 +29,20 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-HEADERS = (CSRC / "ec_common.cuh",)
+HEADERS = (CSRC / "ec_common.cuh", CSRC / "ec_lanes.cuh",
+           CSRC / "carry.cuh")
 
 # C signatures by source: every pointer and the stream are c_void_p
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SOURCES = {
     CSRC / "ec_kernels.cu": {
-        "bp_bucket_rounds_mixed": (_P, _P, _P, _I, _I, _I, _P, _P),
+        "bp_bucket_rounds_mixed": (_P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
         "bp_bucket_rounds_proj": (_P, _P, _P, _I, _I, _I, _P, _P),
         "bp_ec_add": (_P, _P, _P, _LL, _I, _P, _P),
         "bp_bucket_round_add": (_P, _P, _P, _I, _I, _P, _P),
+        "bp_ec_gather_sum": (_P, _P, _P, _I, _I, _LL, _I, _I, _P, _P),
+        "bp_ec_window_totals": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
+        "bp_ec_horner": (_P, _P, _I, _I, _I, _I, _P, _P),
     },
     CSRC / "mxu_kernels.cu": {
         "bp_bucket_round_add_mxu": (_P, _P, _P, _I, _I, _P, _P, _P),
@@ -110,3 +116,28 @@ def load():
             fn.restype = ctypes.c_int
             fns[name] = fn
     return SimpleNamespace(**fns)
+
+
+_KERNEL_NAME = re.compile(r"((?:[a-z]+_)+kernel)IL[ij](\d+)E")
+
+
+def ptxas_summary(report):
+    """The `-Xptxas -v` report of one build -> [{kernel, registers,
+    stack, spill_stores, spill_loads}] per entry function, the kernel named
+    with its template argument (limb words)."""
+    out, cur = [], None
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1]
+            m = _KERNEL_NAME.search(mangled)
+            name = f"{m.group(1)}<{m.group(2)}>" if m else mangled
+            cur = {"kernel": name}
+            out.append(cur)
+        elif cur is not None and "stack frame" in line:
+            nums = [int(x) for x in re.findall(r"(\d+) bytes", line)]
+            cur.update(stack=nums[0], spill_stores=nums[1],
+                       spill_loads=nums[2])
+        elif cur is not None and "Used" in line and "registers" in line:
+            cur["registers"] = int(re.search(r"Used (\d+) registers",
+                                             line).group(1))
+    return out

@@ -10,17 +10,32 @@ their launch counts.
 | `bucket_round_add`     | `bucket_round_add_pallas` (:469)                |
 | `bucket_round_add_mxu` | `bucket_round_add_pallas_mxu` (:217)            |
 
+Kernel 3 has, beside the pairwise `ec_add`, three sequential forms: the
+loops of complete adds that the MSM's combine runs (the JAX package's
+`fori_loop`s over `ec_add`), each in one launch, one group of threads per
+output: `ec_gather_sum` (axis sums and folds), `ec_window_totals` and
+`ec_horner`.
+
 Kernel 5 computes what kernel 4 computes, with the REDC of each Montgomery
 product as int8 Toeplitz dot products; nothing in the JAX package calls
 its TPU kernel, and no path of the port calls it either: chip_smoke.py
 races it against kernel 4.
 
-A wrapper takes and returns the port's int64 16-bit limb tensors.  For a
-tensor on the CPU it runs the plain version; for a CUDA tensor it packs the
-limbs into 32-bit words, launches the kernel on PyTorch's current stream and
-unpacks the result, or raises.  The `*32` functions launch a kernel on
-operands already packed, so the kernel can be timed without the packing.  There is no fallback from the kernel to the
-plain version.  `launches[name]` counts kernel launches, and only those.
+Forms of the operands.  Points are the port's int64 16-bit limb tensors
+(3, L, ...) or PACKED 32-bit words (3, NL, ...) int32, NL = L/2, the
+kernels' own form (`field.pack32`).  Kernel 1 and kernel 3's sequential
+forms take packed points only, and kernel 1 gathers its rows from a packed
+affine point table (`affine_rows32`), so the MSM packs its table once and
+keeps its buckets packed to the end of the combine.  `ec_add` and the
+accumulators of kernels 2 and 4 take either form and return the one they
+were given; kernel 5's wrapper takes limb tensors.
+
+For a tensor on the CPU a wrapper runs the plain version; for a CUDA
+tensor it launches the kernel on PyTorch's current stream, or raises.
+There is no fallback from the kernel to the plain version.  The `*32`
+functions launch a kernel on operands already packed, with no checks, so
+the kernel can be timed alone.  `launches[name]` counts kernel launches,
+and only those; `form_launches` splits kernel 3's by form.
 """
 
 import functools
@@ -34,11 +49,15 @@ from .field import mont_mul, mont_mul_mxu, mxu_tables, pack32, unpack32
 
 launches = {"bucket_rounds_mixed": 0, "bucket_rounds_proj": 0, "ec_add": 0,
             "bucket_round_add": 0, "bucket_round_add_mxu": 0}
+# kernel 3's launches by form (they sum to launches["ec_add"])
+form_launches = {"pairwise": 0, "gather_sum": 0, "window_totals": 0,
+                 "horner": 0}
 
 
 def reset_launches():
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, form_launches):
+        for name in counts:
+            counts[name] = 0
 
 
 def _on_card(t, name, ctx):
@@ -66,41 +85,73 @@ def _consts(ctx: CurveCtx):
                     + [n0inv, ctx.b3], dtype=np.uint32)
 
 
-def _launch(fn_name, key, *args):
+def _launch(fn_name, key, *args, form=None):
     stream = torch.cuda.current_stream().cuda_stream
     rc = getattr(build.load(), fn_name)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{fn_name}: CUDA error {rc} at launch")
     launches[key] += 1
+    if form is not None:
+        form_launches[form] += 1
+
+
+def _is_packed(points, ctx, name):
+    """True for packed points (3, NL, ...) int32, False for limb tensors
+    (3, L, ...) int64; raises for anything else."""
+    L = ctx.fp.L
+    if points.dtype == torch.int32 and points.shape[:2] == (3, L // 2):
+        return True
+    if points.dtype == torch.int64 and points.shape[:2] == (3, L):
+        return False
+    raise ValueError(f"{name}: points must be (3, {L}, ...) int64 or "
+                     f"(3, {L // 2}, ...) int32, got {tuple(points.shape)} "
+                     f"{points.dtype}")
+
+
+def _require_packed(points, ctx, name, ndim=None):
+    if not _is_packed(points, ctx, name) or (ndim and points.ndim != ndim):
+        raise ValueError(f"{name}: needs packed (3, {ctx.fp.L // 2}"
+                         f"{', ...' if ndim is None else ''}) int32 points, "
+                         f"got {tuple(points.shape)} {points.dtype}")
+
+
+def _same_device(name, *tensors):
+    if any(t.device != tensors[0].device for t in tensors):
+        raise ValueError(f"{name}: operands on different devices")
+
+
+def _require_contiguous(name, *tensors):
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: CUDA operands must be contiguous")
 
 
 def _check_rounds(buckets, rows, found, width, ctx):
-    L = ctx.fp.L
-    if buckets.dtype != torch.int64 or buckets.shape[:2] != (3, L) \
-            or buckets.ndim != 3:
-        raise ValueError(f"buckets must be (3, {L}, S) int64, got "
-                         f"{tuple(buckets.shape)} {buckets.dtype}")
+    """-> whether the accumulators are packed."""
+    packed = _is_packed(buckets, ctx, "bucket rounds")
+    if buckets.ndim != 3:
+        raise ValueError(f"buckets must be (3, L or NL, S), got "
+                         f"{tuple(buckets.shape)}")
     S = buckets.shape[2]
     R_c = found.shape[0]
-    if found.shape != (R_c, S) or rows.shape != (R_c * S, width * L):
+    if found.shape != (R_c, S) or rows.shape != (R_c * S, width * ctx.fp.L):
         raise ValueError(f"rows {tuple(rows.shape)} / found "
                          f"{tuple(found.shape)} do not fit S = {S}")
-    if rows.device != buckets.device or found.device != buckets.device:
-        raise ValueError("buckets, rows and found must share a device")
+    _same_device("bucket rounds", buckets, rows, found)
+    return packed
 
 
 def _check_round(buckets, rows, found, ctx):
-    L = ctx.fp.L
-    if buckets.dtype != torch.int64 or buckets.shape[:2] != (3, L) \
-            or buckets.ndim != 3:
-        raise ValueError(f"buckets must be (3, {L}, S) int64, got "
-                         f"{tuple(buckets.shape)} {buckets.dtype}")
+    """-> whether the accumulators are packed."""
+    packed = _is_packed(buckets, ctx, "bucket round")
+    if buckets.ndim != 3:
+        raise ValueError(f"buckets must be (3, L or NL, S), got "
+                         f"{tuple(buckets.shape)}")
     S = buckets.shape[2]
-    if found.shape != (S,) or rows.shape != (S, 3 * L):
+    if found.shape != (S,) or rows.shape != (S, 3 * ctx.fp.L):
         raise ValueError(f"rows {tuple(rows.shape)} / found "
                          f"{tuple(found.shape)} do not fit S = {S}")
-    if rows.device != buckets.device or found.device != buckets.device:
-        raise ValueError("buckets, rows and found must share a device")
+    _same_device("bucket round", buckets, rows, found)
+    return packed
 
 
 def pack_rounds(buckets, rows, found):
@@ -110,31 +161,43 @@ def pack_rounds(buckets, rows, found):
             found.to(torch.int32).contiguous())
 
 
+def affine_rows32(points):
+    """Affine points (3, L, n) int64 (Z == 1) -> kernel 1's point table
+    (n, 2NL) int32: row i holds point i's X words, then its Y words."""
+    n = points.shape[2]
+    return pack32(points[:2], 1).permute(2, 0, 1).reshape(n, -1).contiguous()
+
+
+def packed_identity(ctx: CurveCtx, shape, device):
+    """(3, NL, *shape) packed identities (0 : 1 : 0)."""
+    return pack32(ctx.identity_like(shape, device), 1)
+
+
 def _require_card(key, ctx, *tensors):
     if not all(_on_card(t, key, ctx) for t in tensors):
         raise ValueError(f"{key}: packed operands must be CUDA tensors")
 
 
-def _launch_rounds(fn_name, key, acc32, rows32, found32, ctx):
-    """Launch one bucket-rounds kernel on packed CUDA operands; `acc32`
-    (3, NL, S) is updated in place."""
-    _require_card(key, ctx, acc32, rows32, found32)
-    R_c, S = found32.shape
-    _launch(fn_name, key, acc32.data_ptr(), rows32.data_ptr(),
-            found32.data_ptr(), S, R_c, ctx.fp.L // 2,
+def bucket_rounds_mixed32(out32, acc32, table32, ids, found, ctx: CurveCtx):
+    """Kernel 1 on packed CUDA operands, unchecked: writes `out32`
+    (3, NL, S), which may be `acc32` itself."""
+    _require_card("bucket_rounds_mixed", ctx, out32, acc32, table32, ids,
+                  found)
+    R_c, S = found.shape
+    _launch("bp_bucket_rounds_mixed", "bucket_rounds_mixed",
+            out32.data_ptr(), acc32.data_ptr(), table32.data_ptr(),
+            ids.data_ptr(), found.data_ptr(), S, R_c, ctx.fp.L // 2,
             _consts(ctx).ctypes.data)
 
 
-def bucket_rounds_mixed32(acc32, rows32, found32, ctx: CurveCtx):
-    """Kernel 1 on operands already packed by `pack_rounds`."""
-    _launch_rounds("bp_bucket_rounds_mixed", "bucket_rounds_mixed", acc32,
-                   rows32, found32, ctx)
-
-
 def bucket_rounds_proj32(acc32, rows32, found32, ctx: CurveCtx):
-    """Kernel 2 on operands already packed by `pack_rounds`."""
-    _launch_rounds("bp_bucket_rounds_proj", "bucket_rounds_proj", acc32,
-                   rows32, found32, ctx)
+    """Kernel 2 on operands already packed by `pack_rounds`: acc32
+    (3, NL, S) is updated in place by R_c rounds."""
+    _require_card("bucket_rounds_proj", ctx, acc32, rows32, found32)
+    R_c, S = found32.shape
+    _launch("bp_bucket_rounds_proj", "bucket_rounds_proj", acc32.data_ptr(),
+            rows32.data_ptr(), found32.data_ptr(), S, R_c, ctx.fp.L // 2,
+            _consts(ctx).ctypes.data)
 
 
 def bucket_round_add32(acc32, rows32, found32, ctx: CurveCtx):
@@ -147,43 +210,92 @@ def bucket_round_add32(acc32, rows32, found32, ctx: CurveCtx):
 
 
 def ec_add32(P32, Q32, ctx: CurveCtx):
-    """Kernel 3 on packed (3, NL, n) int32 operands -> packed P + Q."""
+    """Kernel 3, pairwise, on packed (3, NL, n) int32 operands -> packed
+    P + Q."""
     _require_card("ec_add", ctx, P32, Q32)
     out = torch.empty_like(P32)
     _launch("bp_ec_add", "ec_add", out.data_ptr(), P32.data_ptr(),
             Q32.data_ptr(), P32.shape[2], ctx.fp.L // 2,
-            _consts(ctx).ctypes.data)
+            _consts(ctx).ctypes.data, form="pairwise")
     return out
 
 
+def ec_gather_sum32(out32, P32, idx, from_identity, ctx: CurveCtx):
+    """Kernel 3's gather-sum form on packed CUDA operands, unchecked."""
+    _require_card("ec_add", ctx, out32, P32, idx)
+    n_out, m = idx.shape
+    _launch("bp_ec_gather_sum", "ec_add", out32.data_ptr(), P32.data_ptr(),
+            idx.data_ptr(), n_out, m, P32.shape[2], int(bool(from_identity)),
+            ctx.fp.L // 2, _consts(ctx).ctypes.data, form="gather_sum")
+
+
+def ec_window_totals32(out32, rowsum32, colsum32, dbl, ctx: CurveCtx):
+    """Kernel 3's window-totals form on packed CUDA operands, unchecked:
+    rowsum32 (3, NL, W, G), colsum32 (3, NL, W, K), out32 (3, NL, W)."""
+    _require_card("ec_add", ctx, out32, rowsum32, colsum32)
+    _, _, W, G = rowsum32.shape
+    _launch("bp_ec_window_totals", "ec_add", out32.data_ptr(),
+            rowsum32.data_ptr(), colsum32.data_ptr(), W, G,
+            colsum32.shape[3], dbl, ctx.fp.L // 2, _consts(ctx).ctypes.data,
+            form="window_totals")
+
+
+def ec_horner32(out32, totals32, wps, c, ctx: CurveCtx):
+    """Kernel 3's Horner form on packed CUDA operands, unchecked:
+    totals32 (3, NL, n_sets*wps), out32 (3, NL, n_sets)."""
+    _require_card("ec_add", ctx, out32, totals32)
+    _launch("bp_ec_horner", "ec_add", out32.data_ptr(), totals32.data_ptr(),
+            out32.shape[2], wps, c, ctx.fp.L // 2, _consts(ctx).ctypes.data,
+            form="horner")
+
+
 # ---------------------------------------------------------------------------
-# Kernel 1: R_c bucket rounds, affine rows, mixed add
+# Kernel 1: R_c bucket rounds, affine rows gathered from a packed table,
+# mixed add
 # ---------------------------------------------------------------------------
 
-def bucket_rounds_mixed_plain(buckets, rows, found, ctx: CurveCtx):
-    """buckets (3, L, S) Montgomery accumulators; rows (R_c*S, 2L) affine
-    (X, Y) rows, round-major; found (R_c, S) occupancy -> buckets after the
-    R_c rounds.  Each occupied slot gets the complete mixed add (RCB16
-    algorithm 8); an empty slot keeps its accumulator."""
+def bucket_rounds_mixed_plain(acc32, table32, ids, found, ctx: CurveCtx):
+    """acc32 (3, NL, S) packed Montgomery accumulators; table32 (n, 2NL)
+    packed affine rows (`affine_rows32`); ids, found (R_c, S): the point
+    added to slot s in round r (an id < n wherever found is set; the
+    caller's slot grid, not checked on the card, which would wait for it),
+    and whether one is -> the accumulators after the R_c rounds, packed.
+    Each occupied slot gets the complete mixed add (RCB16 algorithm 8) of
+    its point; an empty slot keeps its accumulator (its id is not read)."""
     L = ctx.fp.L
-    S = buckets.shape[2]
-    acc = buckets.clone()
+    acc = unpack32(acc32, 1)
     for r in range(found.shape[0]):
         live = torch.nonzero(found[r]).squeeze(1)   # only these slots add
-        delta = rows[r * S + live].reshape(-1, 2, L).permute(1, 2, 0)
+        rows = table32[ids[r, live].long()].reshape(-1, 2, L // 2)
+        delta = unpack32(rows, 2).permute(1, 2, 0)  # (2, L, live)
         acc[:, :, live] = ec_madd(acc[:, :, live], delta, ctx)
-    return acc
+    return pack32(acc, 1)
 
 
-def bucket_rounds_mixed(buckets, rows, found, ctx: CurveCtx):
-    """Kernel 1 (`bp_bucket_rounds_mixed`); see `bucket_rounds_mixed_plain`
-    for the function it computes."""
-    _check_rounds(buckets, rows, found, 2, ctx)
-    if not _on_card(buckets, "bucket_rounds_mixed", ctx):
-        return bucket_rounds_mixed_plain(buckets, rows, found, ctx)
-    acc32, rows32, found32 = pack_rounds(buckets, rows, found)
-    bucket_rounds_mixed32(acc32, rows32, found32, ctx)
-    return unpack32(acc32, 1)
+def bucket_rounds_mixed(acc32, table32, ids, found, ctx: CurveCtx):
+    """Kernel 1 (`bp_bucket_rounds_mixed`): the new accumulators (3, NL, S)
+    after R_c rounds; see `bucket_rounds_mixed_plain` for the function and
+    the operands (ids and found int32, all on one device)."""
+    name = "bucket_rounds_mixed"
+    _require_packed(acc32, ctx, name, ndim=3)
+    S = acc32.shape[2]
+    R_c = found.shape[0]
+    if (found.shape != (R_c, S) or ids.shape != (R_c, S)
+            or found.dtype != torch.int32 or ids.dtype != torch.int32):
+        raise ValueError(f"{name}: ids {tuple(ids.shape)} {ids.dtype} / "
+                         f"found {tuple(found.shape)} {found.dtype} must be "
+                         f"({R_c}, {S}) int32")
+    if table32.dtype != torch.int32 or table32.ndim != 2 \
+            or table32.shape[1] != ctx.fp.L:
+        raise ValueError(f"{name}: table must be (n, {ctx.fp.L}) int32, got "
+                         f"{tuple(table32.shape)} {table32.dtype}")
+    _same_device(name, acc32, table32, ids, found)
+    if not _on_card(acc32, name, ctx):
+        return bucket_rounds_mixed_plain(acc32, table32, ids, found, ctx)
+    _require_contiguous(name, acc32, table32, ids, found)
+    out = torch.empty_like(acc32)
+    bucket_rounds_mixed32(out, acc32, table32, ids, found, ctx)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -206,36 +318,170 @@ def bucket_rounds_proj_plain(buckets, rows, found, ctx: CurveCtx):
 
 
 def bucket_rounds_proj(buckets, rows, found, ctx: CurveCtx):
-    """Kernel 2 (`bp_bucket_rounds_proj`); see `bucket_rounds_proj_plain`."""
-    _check_rounds(buckets, rows, found, 3, ctx)
+    """Kernel 2 (`bp_bucket_rounds_proj`); see `bucket_rounds_proj_plain`.
+    The accumulators are limb tensors or packed; the result is in the same
+    form, the rows are limb tensors."""
+    packed = _check_rounds(buckets, rows, found, 3, ctx)
     if not _on_card(buckets, "bucket_rounds_proj", ctx):
+        if packed:
+            return pack32(bucket_rounds_proj_plain(
+                unpack32(buckets, 1), rows, found, ctx), 1)
         return bucket_rounds_proj_plain(buckets, rows, found, ctx)
-    acc32, rows32, found32 = pack_rounds(buckets, rows, found)
+    acc32 = buckets.clone() if packed else pack32(buckets, 1).contiguous()
+    rows32 = pack32(rows, 1).contiguous()
+    found32 = found.to(torch.int32).contiguous()
     bucket_rounds_proj32(acc32, rows32, found32, ctx)
-    return unpack32(acc32, 1)
+    return acc32 if packed else unpack32(acc32, 1)
 
 
 # ---------------------------------------------------------------------------
-# Kernel 3: batched complete add
+# Kernel 3: batched complete add, and its sequential forms
 # ---------------------------------------------------------------------------
 
 def ec_add(P, Q, ctx: CurveCtx):
-    """Kernel 3 (`bp_ec_add`): P + Q elementwise, P and Q (3, L, *batch) of
-    one shape (any batch size; the kernel masks the ragged tail).  The plain
-    version is `ops/ec.py:ec_add`."""
-    if P.shape != Q.shape or P.shape[:2] != (3, ctx.fp.L):
+    """Kernel 3 (`bp_ec_add`): P + Q elementwise, P and Q (3, L, *batch)
+    limb tensors or (3, NL, *batch) packed, of one shape and form (any
+    batch size; the kernel masks the ragged tail) -> the same form.  The
+    plain version is `ops/ec.py:ec_add`."""
+    packed = _is_packed(P, ctx, "ec_add")
+    if P.shape != Q.shape or P.dtype != Q.dtype:
         raise ValueError(f"ec_add: shapes {tuple(P.shape)} and "
-                         f"{tuple(Q.shape)} must match (3, {ctx.fp.L}, ...)")
-    if P.device != Q.device:
-        raise ValueError("ec_add: operands on different devices")
+                         f"{tuple(Q.shape)} ({P.dtype}, {Q.dtype}) must "
+                         "match")
+    _same_device("ec_add", P, Q)
     if not _on_card(P, "ec_add", ctx):
+        if packed:
+            return pack32(ec_add_plain(unpack32(P, 1), unpack32(Q, 1), ctx),
+                          1)
         return ec_add_plain(P, Q, ctx)
     n = P[0, 0].numel()
     if n == 0:
         return torch.empty_like(P)
+    if packed:
+        nl = P.shape[1]
+        return ec_add32(P.reshape(3, nl, n).contiguous(),
+                        Q.reshape(3, nl, n).contiguous(), ctx).reshape(P.shape)
     out = ec_add32(pack32(P.reshape(3, ctx.fp.L, n), 1).contiguous(),
                    pack32(Q.reshape(3, ctx.fp.L, n), 1).contiguous(), ctx)
     return unpack32(out, 1).reshape(P.shape)
+
+
+def ec_gather_sum_plain(P32, idx, from_identity, ctx: CurveCtx):
+    """P32 (3, NL, ncols) packed points; idx (n_out, m) int32 column ids,
+    -1 for none -> (3, NL, n_out) packed: output o is the columns of row o
+    added left to right by the complete add (`ec.ec_add`), starting from
+    the identity when `from_identity` (identity + P[first] + ...), else
+    from the row's first column itself; a row with no column gives the
+    identity."""
+    P = unpack32(P32, 1)
+    n_out, m = idx.shape
+    acc = ctx.identity_like((n_out,), P.device)
+    started = torch.full((n_out,), bool(from_identity), device=P.device)
+    for j in range(m):
+        col = idx[:, j].long()
+        valid = col >= 0
+        add = torch.nonzero(valid & started).squeeze(1)
+        first = torch.nonzero(valid & ~started).squeeze(1)
+        if add.numel():
+            acc[:, :, add] = ec_add_plain(acc[:, :, add], P[:, :, col[add]],
+                                          ctx)
+        acc[:, :, first] = P[:, :, col[first]]
+        started = started | valid
+    return pack32(acc, 1)
+
+
+def ec_gather_sum(P32, idx, from_identity, ctx: CurveCtx):
+    """Kernel 3's gather-sum form (`bp_ec_gather_sum`): one chain of
+    complete adds per output, over a list of columns; see
+    `ec_gather_sum_plain`.  The MSM's axis sums and folds."""
+    name = "ec_gather_sum"
+    _require_packed(P32, ctx, name, ndim=3)
+    if idx.dtype != torch.int32 or idx.ndim != 2:
+        raise ValueError(f"{name}: idx must be (n_out, m) int32, got "
+                         f"{tuple(idx.shape)} {idx.dtype}")
+    _same_device(name, P32, idx)
+    if not _on_card(P32, name, ctx):
+        return ec_gather_sum_plain(P32, idx, from_identity, ctx)
+    _require_contiguous(name, P32, idx)
+    out = torch.empty((3, P32.shape[1], idx.shape[0]), dtype=torch.int32,
+                      device=P32.device)
+    ec_gather_sum32(out, P32, idx, from_identity, ctx)
+    return out
+
+
+def _weighted_sum_plain(arr, ctx):
+    """arr (3, L, W, m) -> sum_j j * arr[..., j] by the descending running
+    sum (sum of suffixes), from the identity."""
+    m = arr.shape[-1]
+    running = ctx.identity_like(arr.shape[2:-1], arr.device)
+    total = ctx.identity_like(arr.shape[2:-1], arr.device)
+    for t in range(m - 1):
+        running = ec_add_plain(running, arr[..., m - 1 - t], ctx)
+        total = ec_add_plain(total, running, ctx)
+    return total
+
+
+def ec_window_totals_plain(rowsum32, colsum32, dbl, ctx: CurveCtx):
+    """rowsum32 (3, NL, W, G), colsum32 (3, NL, W, K) packed -> per-window
+    totals (3, NL, W) packed: wr = sum_g g*rowsum and wc = sum_k k*colsum
+    by descending running sums, `dbl` doublings of wr (wr + wr), then
+    wr + wc."""
+    wr = _weighted_sum_plain(unpack32(rowsum32, 1), ctx)
+    wc = _weighted_sum_plain(unpack32(colsum32, 1), ctx)
+    for _ in range(dbl):
+        wr = ec_add_plain(wr, wr, ctx)
+    return pack32(ec_add_plain(wr, wc, ctx), 1)
+
+
+def ec_window_totals(rowsum32, colsum32, dbl, ctx: CurveCtx):
+    """Kernel 3's window-totals form (`bp_ec_window_totals`), one group per
+    window; see `ec_window_totals_plain`."""
+    name = "ec_window_totals"
+    _require_packed(rowsum32, ctx, name, ndim=4)
+    _require_packed(colsum32, ctx, name, ndim=4)
+    W = rowsum32.shape[2]
+    if colsum32.shape[2] != W:
+        raise ValueError(f"{name}: {W} and {colsum32.shape[2]} windows")
+    _same_device(name, rowsum32, colsum32)
+    if not _on_card(rowsum32, name, ctx):
+        return ec_window_totals_plain(rowsum32, colsum32, dbl, ctx)
+    _require_contiguous(name, rowsum32, colsum32)
+    out = torch.empty((3, rowsum32.shape[1], W), dtype=torch.int32,
+                      device=rowsum32.device)
+    ec_window_totals32(out, rowsum32, colsum32, dbl, ctx)
+    return out
+
+
+def ec_horner_plain(totals32, wps, c, ctx: CurveCtx):
+    """totals32 (3, NL, n_sets*wps) packed window totals, set-major ->
+    (3, NL, n_sets) packed: per set, from the identity, for w = wps-1 .. 0
+    c doublings (acc + acc), then acc + totals[set, w]."""
+    t = unpack32(totals32, 1)
+    n_sets = t.shape[2] // wps
+    t = t.reshape(t.shape[:2] + (n_sets, wps))
+    acc = ctx.identity_like((n_sets,), t.device)
+    for w in range(wps - 1, -1, -1):
+        for _ in range(c):
+            acc = ec_add_plain(acc, acc, ctx)
+        acc = ec_add_plain(acc, t[..., w], ctx)
+    return pack32(acc, 1)
+
+
+def ec_horner(totals32, wps, c, ctx: CurveCtx):
+    """Kernel 3's Horner form (`bp_ec_horner`), one group per set; see
+    `ec_horner_plain`."""
+    name = "ec_horner"
+    _require_packed(totals32, ctx, name, ndim=3)
+    if wps <= 0 or totals32.shape[2] % wps:
+        raise ValueError(f"{name}: {totals32.shape[2]} totals are not sets "
+                         f"of {wps}")
+    if not _on_card(totals32, name, ctx):
+        return ec_horner_plain(totals32, wps, c, ctx)
+    _require_contiguous(name, totals32)
+    out = torch.empty((3, totals32.shape[1], totals32.shape[2] // wps),
+                      dtype=torch.int32, device=totals32.device)
+    ec_horner32(out, totals32, wps, c, ctx)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -267,13 +513,20 @@ def bucket_round_add_plain(buckets, rows, found, ctx: CurveCtx,
 
 
 def bucket_round_add(buckets, rows, found, ctx: CurveCtx):
-    """Kernel 4 (`bp_bucket_round_add`); see `bucket_round_add_plain`."""
-    _check_round(buckets, rows, found, ctx)
+    """Kernel 4 (`bp_bucket_round_add`); see `bucket_round_add_plain`.  The
+    accumulators are limb tensors or packed; the result is in the same
+    form, the rows are limb tensors."""
+    packed = _check_round(buckets, rows, found, ctx)
     if not _on_card(buckets, "bucket_round_add", ctx):
+        if packed:
+            return pack32(bucket_round_add_plain(
+                unpack32(buckets, 1), rows, found, ctx), 1)
         return bucket_round_add_plain(buckets, rows, found, ctx)
-    acc32, rows32, found32 = pack_rounds(buckets, rows, found)
+    acc32 = buckets.clone() if packed else pack32(buckets, 1).contiguous()
+    rows32 = pack32(rows, 1).contiguous()
+    found32 = found.to(torch.int32).contiguous()
     bucket_round_add32(acc32, rows32, found32, ctx)
-    return unpack32(acc32, 1)
+    return acc32 if packed else unpack32(acc32, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -327,7 +580,8 @@ def bucket_round_add_mxu32(acc32, rows32, found32, ctx: CurveCtx):
 def bucket_round_add_mxu(buckets, rows, found, ctx: CurveCtx):
     """Kernel 5 (`bp_bucket_round_add_mxu`); see
     `bucket_round_add_mxu_plain`."""
-    _check_round(buckets, rows, found, ctx)
+    if _check_round(buckets, rows, found, ctx):
+        raise ValueError("bucket_round_add_mxu takes limb tensors")
     if not _on_card(buckets, "bucket_round_add_mxu", ctx):
         return bucket_round_add_mxu_plain(buckets, rows, found, ctx)
     acc32, rows32, found32 = pack_rounds(buckets, rows, found)

@@ -9,13 +9,15 @@ CUDA kernels of `ops/ec_kernels.py`.
    (window, bucket) slots.  Rounds = max bucket occupancy.  Skewed windows
    are spread over sub-buckets and duplicate rows (`window_plan`).
 3. **Bucket rounds**: R_c rounds per kernel launch, accumulators resident in
-   registers (`bucket_rounds_mixed` for affine tables, `bucket_rounds_proj`
-   after pre-reduction passes), or, with `ec_kernel="round"`, one launch
-   of `bucket_round_add` per round.
-4. **Combine**: sub-bucket and duplicate-row folds, the two-level row/column
-   sums and the weighted running sums, all through the batched `ec_add`
-   kernel, give one total per window; the window Horner runs on the host in
-   Python ints (`msm_hybrid`) or on the device (`msm_device`).
+   registers (`bucket_rounds_mixed` for affine tables, which gathers its
+   rows by point id from the table packed once per MSM;
+   `bucket_rounds_proj` after pre-reduction passes), or, with
+   `ec_kernel="round"`, one launch of `bucket_round_add` per round.
+4. **Combine**: sub-bucket and duplicate-row folds and the two-level
+   row/column sums (`ec_gather_sum`), then the weighted running sums
+   (`ec_window_totals`): kernel 3's sequential forms, one launch each, give
+   one total per window; the window Horner runs on the host in Python ints
+   (`msm_hybrid`) or on the device (`ec_horner`, `msm_device`).
 
 `pick_window`, `window_plan`, `occupancy_guess` and the slot-grid algorithm
 are identical to the JAX package's, so digits, grids, occupancy and bucket
@@ -23,7 +25,11 @@ arrays compare entry for entry.  Their thresholds (c = 8, `EC_CHUNK` = 16,
 the 4-sigma round margin) were tuned on a TPU and are untuned for the H100.
 
 Layouts keep the JAX package's: points (3, L, n), digits (W, n), buckets
-(3, L, W, B), with int64 lanes.
+(3, L, W, B), with int64 lanes.  Between the bucket rounds and the window
+totals the buckets stay PACKED in the kernels' 32-bit words, (3, NL, W, B)
+int32 (`field.pack32`), on the CPU too: `bucket_rowcol`, `window_totals`
+and `combine_from_rowcol` take and return packed points, and an MSM
+unpacks once, its window totals.
 """
 
 import math
@@ -35,8 +41,11 @@ from . import field as fd
 from .ec import (CurveCtx, from_device_points, to_device_points_affine,
                  to_device_scalars)
 from .ec_host import G1
-from .ec_kernels import (bucket_round_add, bucket_rounds_mixed,
-                         bucket_rounds_proj, ec_add)
+from .ec_kernels import (affine_rows32, bucket_round_add,
+                         bucket_rounds_mixed, bucket_rounds_proj, ec_add,
+                         ec_gather_sum, ec_horner, ec_window_totals,
+                         packed_identity)
+from .field import unpack32
 
 # Rounds per bucket-kernel launch (the JAX package's BP_EC_CHUNK default).
 EC_CHUNK = 16
@@ -225,40 +234,79 @@ def _slot_grid_from(sorted_d, rank, values, B, R, ranges, splits, n):
 # Bucket accumulation
 # ---------------------------------------------------------------------------
 
+_index_tables = {}
+
+
+def _index_on(key, make, device):
+    """A gather-sum index table (numpy int32 from `make()`) on `device`,
+    made once per key and device."""
+    k = (key, str(device))
+    if k not in _index_tables:
+        _index_tables[k] = torch.as_tensor(make(), device=device)
+    return _index_tables[k]
+
+
+def _pad_rows(rows):
+    """Lists of column ids -> (len, max len) int32, padded with -1."""
+    m = max(1, max(len(r) for r in rows))
+    out = np.full((len(rows), m), -1, dtype=np.int32)
+    for i, r in enumerate(rows):
+        out[i, :len(r)] = r
+    return out
+
+
+def _split_fold_index(W, B, ranges, splits):
+    rows = []
+    for w in range(W):
+        s, rng = splits[w], ranges[w]
+        for d in range(B):
+            if s == 1:
+                rows.append([w * B + d])
+            elif d < rng:
+                rows.append([w * B + d + j * rng for j in range(s)])
+            else:
+                rows.append([])                     # the identity
+    return _pad_rows(rows)
+
+
 def fold_split_buckets(buckets, ctx, ranges, splits):
     """Undo the sub-bucket spreading: for every window with split > 1, fold
-    bucket d + range*j into bucket d.  (3, L, W, B) -> same shape."""
-    B = buckets.shape[3]
-    out = buckets.clone()
-    for w in range(buckets.shape[2]):
-        s, rng = int(splits[w, 0]), int(ranges[w, 0])
-        if s == 1:
-            continue
-        col = buckets[:, :, w]                       # (3, L, B)
-        acc = col[..., :rng].contiguous()
-        for j in range(1, s):
-            acc = ec_add(acc, col[..., j * rng:(j + 1) * rng].contiguous(),
-                         ctx)
-        out[:, :, w] = torch.cat(
-            [acc, ctx.identity_like((B - rng,), buckets.device)], dim=-1)
-    return out
+    bucket d + range*j into bucket d (j = 1 .. split-1, in order) and set
+    the buckets past the range to the identity.  Packed (3, NL, W, B) ->
+    the same shape, in one launch of `ec_gather_sum`."""
+    if int(splits.max()) == 1:
+        return buckets
+    nl, W, B = buckets.shape[1:]
+    key = ("split", W, B, tuple(ranges[:, 0].tolist()),
+           tuple(splits[:, 0].tolist()))
+    idx = _index_on(key, lambda: _split_fold_index(
+        W, B, ranges[:, 0].tolist(), splits[:, 0].tolist()), buckets.device)
+    out = ec_gather_sum(buckets.reshape(3, nl, W * B), idx, False, ctx)
+    return out.reshape(3, nl, W, B)
+
+
+def _dup_fold_index(W_base, B, dup_plan):
+    rows = [[w * B + d] for w in range(W_base) for d in range(B)]
+    k = W_base
+    for src, g in dup_plan:
+        for d in range(B):
+            rows[src * B + d] += [(k + i) * B + d for i in range(g - 1)]
+        k += g - 1
+    return _pad_rows(rows)
 
 
 def _fold_dup_rows(buckets, ctx, dup_plan, W_base):
     """Fold the duplicate bucket rows (appended past W_base) back into their
-    source windows and strip them: (3, L, W', B) -> (3, L, W_base, B)."""
+    source windows, in order, and strip them: packed (3, NL, W', B) ->
+    (3, NL, W_base, B), in one launch of `ec_gather_sum`."""
     if not dup_plan:
         return buckets
-    base = buckets[:, :, :W_base].clone()
-    extra = buckets[:, :, W_base:]
-    k = 0
-    for src, g in dup_plan:
-        acc = base[:, :, src].contiguous()
-        for _ in range(g - 1):
-            acc = ec_add(acc, extra[:, :, k].contiguous(), ctx)
-            k += 1
-        base[:, :, src] = acc
-    return base
+    nl, W, B = buckets.shape[1:]
+    idx = _index_on(("dup", W_base, B, tuple(dup_plan)),
+                    lambda: _dup_fold_index(W_base, B, dup_plan),
+                    buckets.device)
+    out = ec_gather_sum(buckets.reshape(3, nl, W * B), idx, False, ctx)
+    return out.reshape(3, nl, W_base, B)
 
 
 def _spread_dup_rows(digits, dup_plan):
@@ -299,11 +347,30 @@ def _pre_reduce_rows(points, sorted_d, rank, perm, ctx, pre_reduce):
     return P.permute(2, 3, 0, 1).reshape(W * n, 3 * L)
 
 
+def uses_mixed(ctx: CurveCtx, affine, pre_reduce=0, ec_kernel="chunk"):
+    """Whether a bucket pass runs kernel 1, the mixed add from the packed
+    affine table: the table has Z == 1 everywhere (`affine`), no
+    pre-reduction pass made projective rows, the curve has a = 0 and the
+    pass is chunked."""
+    return (affine and pre_reduce == 0 and ctx.a_is_zero
+            and ec_kernel == "chunk")
+
+
+def mixed_table(points, ctx: CurveCtx, affine, ec_kernel="chunk"):
+    """Kernel 1's packed table of `points` ((n, 2NL) int32,
+    `affine_rows32`) when a bucket pass without pre-reduction runs kernel
+    1 (`uses_mixed`), else None."""
+    if uses_mixed(ctx, affine, 0, ec_kernel):
+        return affine_rows32(points)
+    return None
+
+
 def bucket_accumulate(points, digits, ctx: CurveCtx, c: int, n_rounds,
                       plan=None, pre_reduce=0, affine=False,
-                      ec_kernel="chunk"):
-    """points (3, L, n) Montgomery, digits (W, n) -> (buckets (3, L, W, B),
-    occ), occ the true max occupancy under `plan` after `pre_reduce` passes.
+                      ec_kernel="chunk", table32=None):
+    """points (3, L, n) Montgomery, digits (W, n) -> (buckets (3, NL, W, B)
+    PACKED, occ), occ the true max occupancy under `plan` after
+    `pre_reduce` passes.
 
     The occupancy comes from the slot grid before any EC work: when it
     exceeds `n_rounds` the schedule would drop points, so nothing is added
@@ -313,7 +380,10 @@ def bucket_accumulate(points, digits, ctx: CurveCtx, c: int, n_rounds,
     pre_reduce: halving passes (`_pre_reduce_rows`) that tame degenerate
     scalar distributions such as bit vectors, at W*n batched adds a pass.
     affine: the table has Z == 1 everywhere, so without pre-reduction the
-    chunked rounds use the mixed-add kernel on (X, Y) rows.
+    chunked rounds use the mixed-add kernel (`uses_mixed`), which reads the
+    table packed (`table32`, (n, 2NL) int32 from `mixed_table`, on the
+    points' device; made here when not given) by the slot grid's point
+    ids.
     ec_kernel: "chunk" runs EC_CHUNK rounds per launch of kernel 1 or 2;
     "round" runs one launch of kernel 4 (`bucket_round_add`) per round on
     projective rows, affine table or not, as the JAX package's per-round
@@ -336,8 +406,15 @@ def bucket_accumulate(points, digits, ctx: CurveCtx, c: int, n_rounds,
         digits = _spread_dup_rows(digits, dup_plan)
     W = digits.shape[0]
 
-    mixed = (affine and pre_reduce == 0 and ctx.a_is_zero
-             and ec_kernel == "chunk")
+    if table32 is not None and (tuple(table32.shape) != (n, L)
+                                or table32.dtype != torch.int32
+                                or table32.device != dev):
+        # the kernel reads rows by id without bounds: a short table would
+        # be read past its end
+        raise ValueError(f"table32 must be ({n}, {L}) int32 on {dev}, got "
+                         f"{tuple(table32.shape)} {table32.dtype} on "
+                         f"{table32.device}")
+    mixed = uses_mixed(ctx, affine, pre_reduce, ec_kernel)
     w_off = None
     if pre_reduce:
         sorted_d, rank, perm = _sorted_ranks(digits)
@@ -355,26 +432,36 @@ def bucket_accumulate(points, digits, ctx: CurveCtx, c: int, n_rounds,
         grid, found, occ = _slot_grid(digits, B, n_rounds, ranges, splits)
         if occ > n_rounds:
             return None, occ
-        table = points[:2] if mixed else points
-        points_rows = table.permute(2, 0, 1).reshape(n, table.shape[0] * L)
+        if not mixed:
+            points_rows = points.permute(2, 0, 1).reshape(n, 3 * L)
 
     S = W * B
     R_c = 1 if ec_kernel == "round" else _chunk_rounds(n_rounds)
-    grid_c = grid.reshape(n_rounds // R_c, R_c, W, B)
-    found_c = found.reshape(n_rounds // R_c, R_c, S).to(torch.int32)
-    buckets = ctx.identity_like((S,), dev)
-    for ci in range(n_rounds // R_c):
-        pid = grid_c[ci].clamp(max=n - 1)
-        if w_off is not None:
-            pid = pid + w_off
-        rows = points_rows[pid.reshape(-1)]          # (R_c*S, 2L | 3L)
-        if ec_kernel == "round":
-            buckets = bucket_round_add(buckets, rows, found_c[ci, 0], ctx)
-        elif mixed:
-            buckets = bucket_rounds_mixed(buckets, rows, found_c[ci], ctx)
-        else:
-            buckets = bucket_rounds_proj(buckets, rows, found_c[ci], ctx)
-    buckets = buckets.reshape(3, L, W, B)
+    buckets = packed_identity(ctx, (S,), dev)
+    if mixed:
+        if table32 is None:
+            table32 = affine_rows32(points)
+        # point ids and occupancy of every round, (n_rounds, S) int32
+        ids = grid.reshape(n_rounds, S).clamp(max=n - 1).to(torch.int32)
+        found32 = found.reshape(n_rounds, S).to(torch.int32)
+        for r0 in range(0, n_rounds, R_c):
+            buckets = bucket_rounds_mixed(buckets, table32,
+                                          ids[r0:r0 + R_c],
+                                          found32[r0:r0 + R_c], ctx)
+    else:
+        grid_c = grid.reshape(n_rounds // R_c, R_c, W, B)
+        found_c = found.reshape(n_rounds // R_c, R_c, S).to(torch.int32)
+        for ci in range(n_rounds // R_c):
+            pid = grid_c[ci].clamp(max=n - 1)
+            if w_off is not None:
+                pid = pid + w_off
+            rows = points_rows[pid.reshape(-1)]      # (R_c*S, 3L)
+            if ec_kernel == "round":
+                buckets = bucket_round_add(buckets, rows, found_c[ci, 0],
+                                           ctx)
+            else:
+                buckets = bucket_rounds_proj(buckets, rows, found_c[ci], ctx)
+    buckets = buckets.reshape(3, L // 2, W, B)
     if plan is not None:
         buckets = fold_split_buckets(buckets, ctx, ranges, splits)
     return _fold_dup_rows(buckets, ctx, dup_plan, W_base), occ
@@ -384,62 +471,49 @@ def bucket_accumulate(points, digits, ctx: CurveCtx, c: int, n_rounds,
 # Bucket and window combine
 # ---------------------------------------------------------------------------
 
-def _running_weighted_sum(arr, m, ctx):
-    """arr (3, L, *batch, m) -> sum_j j * arr[..., j] by the descending
-    running sum (sum of suffixes)."""
-    running = ctx.identity_like(arr.shape[2:-1], arr.device)
-    total = ctx.identity_like(arr.shape[2:-1], arr.device)
-    for t in range(m - 1):
-        running = ec_add(running, arr[..., m - 1 - t].contiguous(), ctx)
-        total = ec_add(total, running, ctx)
-    return total
-
-
-def _axis_sum(arr, m, axis, ctx):
-    """Plain EC sum over `axis` (length m), sequential."""
-    acc = ctx.identity_like(arr.shape[2:axis] + arr.shape[axis + 1:],
-                            arr.device)
-    for j in range(m):
-        acc = ec_add(acc, arr.select(axis, j).contiguous(), ctx)
-    return acc
+def _rowcol_index(W, G, K):
+    """Row o < W*G lists the K buckets of rowsum[w, g]; row W*G + w*K + k
+    the G buckets of colsum[w, k]; bucket d = g*K + k of window w is
+    column w*G*K + d."""
+    rows = [[w * G * K + g * K + k for k in range(K)]
+            for w in range(W) for g in range(G)]
+    rows += [[w * G * K + g * K + k for g in range(G)]
+             for w in range(W) for k in range(K)]
+    return _pad_rows(rows)
 
 
 def bucket_rowcol(buckets, ctx: CurveCtx, c: int):
     """The wide half of the bucket combine: with d = g*K + k,
-    rowsum[w, g] = sum_k B[w, gK+k] and colsum[w, k] = sum_g B[w, gK+k].
-    (3, L, W, B) -> ((3, L, W, G), (3, L, W, K))."""
+    rowsum[w, g] = sum_k B[w, gK+k] and colsum[w, k] = sum_g B[w, gK+k],
+    each from the identity in index order, in one launch of
+    `ec_gather_sum`.  Packed (3, NL, W, B) -> ((3, NL, W, G),
+    (3, NL, W, K))."""
     g_bits = (c + 1) // 2
     G, K = 1 << g_bits, 1 << (c - g_bits)
-    bk = buckets.reshape(buckets.shape[:3] + (G, K))
-    return _axis_sum(bk, K, 4, ctx), _axis_sum(bk, G, 3, ctx)
+    nl, W, B = buckets.shape[1:]
+    idx = _index_on(("rowcol", W, G, K), lambda: _rowcol_index(W, G, K),
+                    buckets.device)
+    out = ec_gather_sum(buckets.reshape(3, nl, W * B), idx, True, ctx)
+    return (out[:, :, :W * G].reshape(3, nl, W, G),
+            out[:, :, W * G:].reshape(3, nl, W, K))
 
 
 def window_totals(rowsum, colsum, ctx: CurveCtx, c: int):
-    """Per-window totals T_w = K*(sum_g g*rowsum) + sum_k k*colsum:
-    (3, L, W, G), (3, L, W, K) -> (3, L, W)."""
-    G, K = rowsum.shape[3], colsum.shape[3]
-    wr = _running_weighted_sum(rowsum, G, ctx)
-    wc = _running_weighted_sum(colsum, K, ctx)
-    for _ in range(c - (c + 1) // 2):                # K * wr
-        wr = ec_add(wr, wr, ctx)
-    return ec_add(wr, wc, ctx)
+    """Per-window totals T_w = K*(sum_g g*rowsum) + sum_k k*colsum, in one
+    launch of `ec_window_totals`: packed (3, NL, W, G), (3, NL, W, K) ->
+    (3, NL, W)."""
+    return ec_window_totals(rowsum.contiguous(), colsum.contiguous(),
+                            c - (c + 1) // 2, ctx)
 
 
 def combine_from_rowcol(rowsum, colsum, ctx: CurveCtx, c: int,
                         wins_per_set=None):
     """Device tail of the combine: window totals, then Horner over each
-    set's windows.  W = n_sets * wins_per_set windows -> (3, L, n_sets)."""
+    set's windows (`ec_horner`).  W = n_sets * wins_per_set windows, packed
+    -> (3, NL, n_sets) packed."""
     W = rowsum.shape[2]
-    wins_per_set = wins_per_set or W
-    n_sets = W // wins_per_set
     totals = window_totals(rowsum, colsum, ctx, c)
-    totals = totals.reshape(totals.shape[:2] + (n_sets, wins_per_set))
-    acc = ctx.identity_like((n_sets,), rowsum.device)
-    for w in range(wins_per_set - 1, -1, -1):
-        for _ in range(c):
-            acc = ec_add(acc, acc, ctx)
-        acc = ec_add(acc, totals[..., w].contiguous(), ctx)
-    return acc
+    return ec_horner(totals, wins_per_set or W, c, ctx)
 
 
 # ---------------------------------------------------------------------------
@@ -453,21 +527,22 @@ def _digits_multi(scalars, ctx, c):
 
 
 def msm_totals(points, scalars, ctx: CurveCtx, c: int, n_rounds,
-               pre_reduce=0, affine=False, ec_kernel="chunk"):
+               pre_reduce=0, affine=False, ec_kernel="chunk", table32=None):
     """S scalar sets against one point table in ONE bucket pass (the port
     of `_msm_multi_totals_jit`): points (3, L, n) Montgomery, scalars
     (S, Lr, n) plain -> (per-window totals (3, L, S*W) in PLAIN form, occ).
     Totals are None when occ > n_rounds (see `bucket_accumulate`, which
-    also says what `ec_kernel` selects)."""
+    also says what `ec_kernel` and `table32` are)."""
     digits = _digits_multi(scalars, ctx, c)
     plan = window_plan(ctx, c, n_sets=scalars.shape[0], dup=True)
     buckets, occ = bucket_accumulate(points, digits, ctx, c, n_rounds,
                                      plan=plan, pre_reduce=pre_reduce,
-                                     affine=affine, ec_kernel=ec_kernel)
+                                     affine=affine, ec_kernel=ec_kernel,
+                                     table32=table32)
     if buckets is None:
         return None, occ
     rowsum, colsum = bucket_rowcol(buckets, ctx, c)
-    totals = window_totals(rowsum, colsum, ctx, c)       # (3, L, S*W)
+    totals = unpack32(window_totals(rowsum, colsum, ctx, c), 1)
     L, m = ctx.fp.L, totals.shape[2]
     plain = fd.from_mont(totals.permute(1, 0, 2).reshape(L, 3 * m), ctx.fp)
     return plain.reshape(L, 3, m).permute(1, 0, 2), occ
@@ -485,7 +560,8 @@ def _horner(totals, cv, c):
 
 
 def msm_hybrid(points_dev, scalars_multi, ctx: CurveCtx, c: int = None,
-               n_eff: int = None, affine: bool = False, ec_kernel="chunk"):
+               n_eff: int = None, affine: bool = False, ec_kernel="chunk",
+               table32=None):
     """Multi-set MSM, the device Pippenger with the serial Horner tail on
     the host: points (3, L, n) Montgomery and scalars (S, Lr, n) plain, both
     on one device -> list of S host G1 results.
@@ -494,7 +570,9 @@ def msm_hybrid(points_dev, scalars_multi, ctx: CurveCtx, c: int = None,
     shape (`_escalation_memo`): bit-vector scalars need pre-reduction every
     time.  n_eff: a bound on the non-zero scalars per set, which tightens
     the round guess.  ec_kernel: the form of the bucket pass, "chunk" or
-    "round" (`bucket_accumulate`); the results are equal."""
+    "round" (`bucket_accumulate`); the results are equal.  table32: the
+    affine table packed by `affine_rows32`, for a caller that reuses one
+    table over many MSMs; else it is packed here, once."""
     n = points_dev.shape[2]
     S = scalars_multi.shape[0]
     if c is None:
@@ -503,9 +581,11 @@ def msm_hybrid(points_dev, scalars_multi, ctx: CurveCtx, c: int = None,
     key = (n, S, c, ctx.cv.name, n_eff)
     rounds, pre = _escalation_memo.get(
         key, (occupancy_guess(n_eff or n, ctx, c), 0))
+    if table32 is None:
+        table32 = mixed_table(points_dev, ctx, affine, ec_kernel)
     while True:
         totals, occ = msm_totals(points_dev, scalars_multi, ctx, c, rounds,
-                                 pre, affine, ec_kernel)
+                                 pre, affine, ec_kernel, table32)
         if totals is not None:
             break
         rounds, pre = _escalate(occ, rounds, pre)
@@ -524,15 +604,16 @@ def msm_device(points, scalars, ctx: CurveCtx, c: int, affine=False):
     pre = 0
     digits = fd.get_digits(scalars, c, _n_windows(ctx, c))
     plan = window_plan(ctx, c, dup=True)
+    table32 = mixed_table(points, ctx, affine)
     while True:
         buckets, occ = bucket_accumulate(points, digits, ctx, c, rounds,
                                          plan=plan, pre_reduce=pre,
-                                         affine=affine)
+                                         affine=affine, table32=table32)
         if buckets is not None:
             break
         rounds, pre = _escalate(occ, rounds, pre)
     rowsum, colsum = bucket_rowcol(buckets, ctx, c)
-    return combine_from_rowcol(rowsum, colsum, ctx, c)
+    return unpack32(combine_from_rowcol(rowsum, colsum, ctx, c), 1)
 
 
 def msm(points, scalars, cv=None, device="cuda"):

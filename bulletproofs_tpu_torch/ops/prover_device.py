@@ -42,7 +42,8 @@ from . import field as fd
 from . import msm as msm_mod
 from .ec import (CurveCtx, content_digest, from_device_points,
                  to_device_points_affine, to_device_scalars)
-from .ec_kernels import ec_add
+from .ec_kernels import affine_rows32, ec_add
+from .field import pack32, unpack32
 from .field_host import Scalar
 
 
@@ -208,14 +209,16 @@ def _ipa_final_step(A, B, u_p, u_inv_p, fr):
 
 
 def _create_ipp_per_round(transcript, Gf_m, Hf_m, pts_dev, A, B, ctx,
-                          window=None, affine=False, ec_kernel="chunk"):
+                          window=None, affine=False, ec_kernel="chunk",
+                          table32=None):
     """The IPA prover, one MSM and one host transcript step per round.
 
     pts_dev: (3, L, 2n+2) table [G | H | Q | identity] (Montgomery); Gf_m,
     Hf_m: (Lr, n) Montgomery G/H factors (the reference's first-round
     fold-in becomes the running factors' start); A, B: (Lr, n) Montgomery
     a and b.  window: the MSM's c (default `pick_window(2n + 2)`);
-    ec_kernel: the bucket pass's form (`msm.bucket_accumulate`).
+    ec_kernel: the bucket pass's form (`msm.bucket_accumulate`);
+    table32: the affine table packed (`_ipa_table`), shared by the rounds.
     Returns (L_vec, R_vec, a, b)."""
     fr = ctx.fr
     dev = A.device
@@ -240,7 +243,8 @@ def _create_ipp_per_round(transcript, Gf_m, Hf_m, pts_dev, A, B, ctx,
         with _timed("ipa_msm", dev):
             # each set has <= n+1 non-zero scalars (the masked half is 0)
             L, R = msm_mod.msm_hybrid(pts_dev, scal2, ctx, c, n_eff=n + 1,
-                                      affine=affine, ec_kernel=ec_kernel)
+                                      affine=affine, ec_kernel=ec_kernel,
+                                      table32=table32)
         with _timed("ipa_transcript", dev):
             transcript.commit_point(b"L", L)
             transcript.commit_point(b"R", R)
@@ -267,17 +271,30 @@ def create_ipp_device(transcript, Q, G_factors, H_factors, G_vec, H_vec,
     `device`, with the transcript schedule of `ipp.rs:35-202`."""
     ctx = CurveCtx(curve())
     fr = ctx.fr
-    Gd, affG = _pts_cache.get(G_vec, ctx, device)
-    Hd, affH = _pts_cache.get(H_vec, ctx, device)
-    Qd, affQ = to_device_points_affine([Q], ctx, device)
-    # the identity column's scalars are always zero, so the scheduler never
-    # adds it: the table stays fit for the mixed-add kernel
-    pts = torch.cat([Gd, Hd, Qd, ctx.identity_like((1,), device)], dim=2)
+    pts, affine, table32 = _ipa_table(G_vec, H_vec, Q, ctx, device)
     return _create_ipp_per_round(
         transcript, _mont(fr, G_factors, device),
         _mont(fr, H_factors, device), pts, _mont(fr, a_vec, device),
-        _mont(fr, b_vec, device), ctx, affine=affG and affH and affQ,
-        ec_kernel=ec_kernel)
+        _mont(fr, b_vec, device), ctx, affine=affine, ec_kernel=ec_kernel,
+        table32=table32)
+
+
+def _ipa_table(G_vec, H_vec, Q, ctx, device):
+    """The IPA's MSM table [G | H | Q | identity] on `device`: (points
+    (3, L, 2n+2), whether affine, and for an affine table its kernel-1 rows
+    packed (`affine_rows32`), else None), the G and H parts from
+    `_pts_cache`.  The identity column's scalars are always zero, so the
+    scheduler never adds it (its packed row is zeros, never read) and the
+    table stays fit for the mixed-add kernel."""
+    Gd, affG, G32 = _pts_cache.get(G_vec, ctx, device)
+    Hd, affH, H32 = _pts_cache.get(H_vec, ctx, device)
+    Qd, affQ = to_device_points_affine([Q], ctx, device)
+    pts = torch.cat([Gd, Hd, Qd, ctx.identity_like((1,), device)], dim=2)
+    if not (affG and affH and affQ):
+        return pts, False, None
+    table32 = torch.cat([G32, H32, affine_rows32(Qd),
+                         torch.zeros_like(G32[:1])], dim=0)
+    return pts, True, table32
 
 
 class _PtsCache:
@@ -290,15 +307,17 @@ class _PtsCache:
         self.max = max_entries
 
     def get(self, points, ctx, device):
-        """(3, L, n) Montgomery tensor on `device` and whether it is affine
-        (fit for the mixed-add bucket kernel)."""
+        """(3, L, n) Montgomery tensor on `device`, whether it is affine
+        (fit for the mixed-add bucket kernel), and then its kernel-1 rows
+        packed (`affine_rows32`, made once per entry), else None."""
         key = (content_digest(points, ctx), str(torch.device(device)))
         hit = self.entries.get(key)
         if hit is None:
             if len(self.entries) >= self.max:
                 self.entries.clear()
-            hit = self.entries[key] = to_device_points_affine(
-                list(points), ctx, device)
+            pts, affine = to_device_points_affine(list(points), ctx, device)
+            hit = self.entries[key] = (
+                pts, affine, affine_rows32(pts) if affine else None)
         return hit
 
 
@@ -458,8 +477,9 @@ def _lr_eval_kernel(l1, l2, l3, r0, r1, r3, x_m, fr):
 def _masked_sums(points, masks, ctx):
     """points (3, L, n) Montgomery, masks (S, n) bool -> (3, L, S): the sum
     of the points each mask selects, by a log2(n) tree of complete adds,
-    each level one call of kernel 3 (`ec_kernels.ec_add`).  Unselected
-    points and the padding to a power of two are the identity."""
+    each level one call of kernel 3 (`ec_kernels.ec_add`) on points packed
+    once before the tree.  Unselected points and the padding to a power of
+    two are the identity."""
     S, n = masks.shape
     L = points.shape[1]
     ident = ctx.identity_like((1,), points.device)           # (3, L, 1)
@@ -469,12 +489,13 @@ def _masked_sums(points, masks, ctx):
     if m != n:
         sel = torch.cat([sel, ident[:, :, None].expand(3, L, S, m - n)],
                         dim=3)
+    sel = pack32(sel, 1)
     while m > 1:
         half = m // 2
         sel = ec_add(sel[..., :half].contiguous(),
                      sel[..., half:].contiguous(), ctx)
         m = half
-    return sel[..., 0]
+    return unpack32(sel[..., 0], 1)
 
 
 def _bit_structure(vals, r):
@@ -539,8 +560,8 @@ def _phase_commitments(aL, aR, aO, blinds, s_L, s_R, pts, h, ctx,
 
 def _phase_table(G, H, h, ctx, device):
     """[G | H | h] on `device` and whether it is affine."""
-    Gd, affG = _pts_cache.get(G, ctx, device)
-    Hd, affH = _pts_cache.get(H, ctx, device)
+    Gd, affG, _ = _pts_cache.get(G, ctx, device)
+    Hd, affH, _ = _pts_cache.get(H, ctx, device)
     hd, affh = to_device_points_affine([h], ctx, device)
     return torch.cat([Gd, Hd, hd], dim=2), affG and affH and affh
 
@@ -688,15 +709,11 @@ def prove_device(prover, G, H, device="cuda"):
                       _mont(fr, [u], dev).expand(fr.L, n2 + pad)], dim=-1)
     Hf_m = fd.mont_mul(y_inv_pows, Gf_m, fr)
 
-    Gdi, affGi = _pts_cache.get(G[:padded_n], ctx, dev)
-    Hdi, affHi = _pts_cache.get(H[:padded_n], ctx, dev)
-    Qdi, affQi = to_device_points_affine([Q], ctx, dev)
-    # the identity column's scalars are always zero: never scheduled
-    pts_ipa = torch.cat([Gdi, Hdi, Qdi, ctx.identity_like((1,), dev)],
-                        dim=2)
+    pts_ipa, aff_ipa, table32 = _ipa_table(G[:padded_n], H[:padded_n], Q,
+                                           ctx, dev)
     L_vec, R_vec, a_fin, b_fin = _create_ipp_per_round(
-        tr, Gf_m, Hf_m, pts_ipa, l_vec, r_vec, ctx,
-        affine=affGi and affHi and affQi)
+        tr, Gf_m, Hf_m, pts_ipa, l_vec, r_vec, ctx, affine=aff_ipa,
+        table32=table32)
 
     return R1CSProof(A_I1=A_I1, A_O1=A_O1, S1=S1, A_I2=A_I2, A_O2=A_O2,
                      S2=S2, T_1=T_1, T_3=T_3, T_4=T_4, T_5=T_5, T_6=T_6,

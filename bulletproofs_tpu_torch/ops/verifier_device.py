@@ -108,8 +108,8 @@ def verify_ipp_device(n, transcript, G_factors, H_factors, P_pt, Q, G, H,
 
     head = [a * b]
     tail = [-t for t in u_sq] + [-t for t in u_inv_sq]
-    Gd, affG = _pts_cache.get(G[:n], ctx, device)
-    Hd, affH = _pts_cache.get(H[:n], ctx, device)
+    Gd, affG, _ = _pts_cache.get(G[:n], ctx, device)
+    Hd, affH, _ = _pts_cache.get(H[:n], ctx, device)
     ht_dev, ht_vals, aff_ht = _affine_or_zero(
         [Q] + list(L_vec) + list(R_vec), [v.v for v in head + tail], ctx,
         G[0], device)
@@ -254,8 +254,8 @@ def verify_device(verifier, proof, g, h, G, H, device="cuda"):
     ht_dev, ht_vals, aff_ht = _affine_or_zero(
         head_pts + tail_pts, [v.v for v in head + u_sq + u_inv_sq], ctx,
         g, dev)
-    Gd, affG = _pts_cache.get(G[:padded_n], ctx, dev)
-    Hd, affH = _pts_cache.get(H[:padded_n], ctx, dev)
+    Gd, affG, _ = _pts_cache.get(G[:padded_n], ctx, dev)
+    Hd, affH, _ = _pts_cache.get(H[:padded_n], ctx, dev)
     ht_plain = torch.as_tensor(fd.ints_to_limbs(ht_vals, fr.L), device=dev)
     scal = torch.cat([ht_plain[:, :nh], g_plain, h_plain, ht_plain[:, nh:]],
                      dim=-1)[None]

@@ -11,11 +11,15 @@ Phases, each printing one JSON line with its seconds:
   1 build    nvcc of csrc/ec_kernels.cu and csrc/mxu_kernels.cu, in
              parallel, into ctypes libraries;
   2 kernels  each kernel against its plain version at the width each path
-             gives it (bit-exact; kernel 5 also against kernel 4), with the
-             bare kernel's time on operands packed beforehand (`ms`), the
-             wrapper's time with its 16/32-bit limb packing
-             (`wrapper_ms`), the plain version's time and the card's bound
-             for the same work;
+             gives it (bit-exact; kernel 5 also against kernel 4): kernel 1
+             from a packed point table and slot grid at the MSM's and the
+             IPA's slots, kernel 3 pairwise and its sequential forms (the
+             folds, row and column sums, window totals and Horner of the
+             combine) at the range proof's and the MSM's combine shapes;
+             with the bare kernel's time on operands prepared beforehand
+             (`ms`), the wrapper's time with its checks and any 16/32-bit
+             limb packing (`wrapper_ms`), the plain version's time and the
+             card's bound for the same work;
   3 msm_uniform    n random-scalar MSM (the bench's input: 256 base points
                    repeated) through `msm_hybrid`, 1 + 3 runs, and through
                    `msm_device` (the path of the public `msm`), 1 + 3 runs,
@@ -40,8 +44,11 @@ Phases, each printing one JSON line with its seconds:
   7 mxu_race one per-round bucket pass of the IPA MSM (its rounds over
              S slots) through kernel 5 and through kernel 4, in turns, with
              microseconds per round and the buckets bit-exact at the end;
-  8 launches the launch counts of each path (phases 3-4, 5, 6, 7), each
-             kernel of a path required > 0 there.
+  8 launches the launch counts of each path (phases 3-4, 5, 6, 7), kernel
+             3's also by form, each kernel of a path (and each form of
+             kernel 3 the path runs, `PATHS`) required > 0 there,
+             and the counts of one range proof and verification and of one
+             IPA proof and verification.
 The last line is {"ok": true, "device": {...}}.  Any failure raises and
 exits non-zero before it.  Without a CUDA card the script exits 2.
 """
@@ -91,14 +98,22 @@ REPLACES = {
 }
 SOURCES = {name: KERNEL_SOURCE for name in REPLACES}
 SOURCES["bucket_round_add_mxu"] = "bulletproofs_tpu_torch/csrc/mxu_kernels.cu"
-# The kernels each path launches: the MSM phases 3-4, the IPA phase 5, the
-# range proof phase 6 and the race of kernels 5 and 4 (phase 7).
+# The kernels each path launches, kernel 3 by form (`launch_counts`): the
+# MSM phases 3-4, the IPA phase 5, the range proof phase 6 and the race of
+# kernels 5 and 4 (phase 7).  Each must launch on its path.
 PATHS = {
-    "msm": ("bucket_rounds_mixed", "bucket_rounds_proj", "ec_add"),
-    "ipa": ("bucket_rounds_mixed", "ec_add", "bucket_round_add"),
-    "r1cs": ("bucket_rounds_mixed", "ec_add"),
+    "msm": ("bucket_rounds_mixed", "bucket_rounds_proj", "ec_add:pairwise",
+            "ec_add:gather_sum", "ec_add:window_totals", "ec_add:horner"),
+    "ipa": ("bucket_rounds_mixed", "bucket_round_add", "ec_add:gather_sum",
+            "ec_add:window_totals"),
+    "r1cs": ("bucket_rounds_mixed", "ec_add:pairwise", "ec_add:gather_sum",
+             "ec_add:window_totals"),
     "mxu_race": ("bucket_round_add_mxu", "bucket_round_add"),
 }
+# kernel 3's forms in phase 2 -> the kernel form each launches
+FORM_KERNEL = {"split_fold": "gather_sum", "dup_fold": "gather_sum",
+               "rowcol": "gather_sum", "window_totals": "window_totals",
+               "horner": "horner"}
 N_BASE = 256
 # The JAX package's config-2 proof digest (seed 2), made by
 # tests/test_torch_r1cs.py::test_agg16_reference_digest
@@ -176,8 +191,7 @@ def phase_build():
     t0 = time.time()
     reports = build.build()
     build.load()
-    ptxas = {path.name: [ln.strip() for ln in report.splitlines()
-                         if "registers" in ln or "spill" in ln]
+    ptxas = {path.name: build.ptxas_summary(report)
              for path, report in reports.items()}
     emit({"phase": "build", "ptxas": ptxas, "seconds": time.time() - t0})
 
@@ -193,13 +207,32 @@ def ipa_slots(n):
     return msm_mod.window_plan(ctx, c, n_sets=2, dup=True)[0].shape[0] << c
 
 
-def phase_kernels(device, n, seed, reps=5):
+def combine_shapes(n, n_sets):
+    """The combine's shapes for an MSM of n points and n_sets scalar sets:
+    c = pick_window(n) and `window_plan(dup=True)`'s physical rows W' and
+    base windows W, with G, K of `bucket_rowcol`."""
+    ctx = CurveCtx(BLS381)
+    c = msm_mod.pick_window(n)
+    ranges, splits, dup = msm_mod.window_plan(ctx, c, n_sets=n_sets,
+                                              dup=True)
+    g_bits = (c + 1) // 2
+    return {"n": n, "sets": n_sets, "c": c, "W_rows": ranges.shape[0],
+            "W": ranges.shape[0] - sum(g - 1 for _, g in dup),
+            "G": 1 << g_bits, "K": 1 << (c - g_bits), "ranges": ranges,
+            "splits": splits, "dup": dup}
+
+
+def phase_kernels(device, n, seed, reps=5, r1cs_msm_n=4098):
     """Each kernel against its plain version at the width of its path: the
     chunked kernels at the MSM's S = W*B slots of `window_plan(dup=True)`
-    at c = pick_window(n) and R_c = EC_CHUNK rounds, the mixed one and the
-    per-round kernel also at the IPA MSM's slots.  ~30% empty slots, half the accumulators start
-    at the identity, one slot is forced to double.  Returns per-kernel
-    records."""
+    at c = pick_window(n) and R_c = EC_CHUNK rounds, kernel 1 also at the
+    IPA MSM's slots, gathering its rows from a packed table of the path's
+    size (n rows; 2n + 2 for the IPA) by a random slot grid; the per-round
+    kernels at the IPA's slots; kernel 3 pairwise at n + 3 points and its
+    sequential forms at the combine's shapes of the range proof's two-set
+    MSM (r1cs_msm_n points) and of the n-point MSM.  ~30% empty slots,
+    half the accumulators start at the identity, one slot is forced to
+    double.  Returns per-kernel records."""
     t0 = time.time()
     device = torch.device(device)
     cv = BLS381
@@ -226,29 +259,30 @@ def phase_kernels(device, n, seed, reps=5):
     buckets = torch.cat([ctx.identity_like((half,), device),
                          acc_pts[:, :, idx.to(device)]], dim=2)
 
-    def rounds_input(S_k):
-        """R_c rounds of S_k slots: (pid, found) with slot 0 doubling in
-        round 1, and the affine and projective rows they gather."""
-        pid = torch.randint(0, m, (R_c, S_k), generator=gen)
+    def rounds_input(S_k, n_rows):
+        """R_c rounds of S_k slots over a table of n_rows points (the m
+        distinct ones repeated): (ids, found) with slot 0 doubling in
+        round 1, and the packed table and projective rows they give."""
+        pid = torch.randint(0, n_rows, (R_c, S_k), generator=gen)
         found = (torch.rand((R_c, S_k), generator=gen) < 0.7).to(
             torch.int32)
         pid[1, 0] = pid[0, 0]
         found[0, 0] = found[1, 0] = 1
         pid, found = pid.to(device), found.to(device)
-        rows_xy = table[:2].permute(2, 0, 1).reshape(m, 2 * L)[
-            pid.reshape(-1)]
+        rows_of = torch.arange(n_rows, device=device) % m
+        table32 = ek.affine_rows32(table)[rows_of]
         rows_proj = proj.permute(2, 0, 1).reshape(m, 3 * L)[
-            pid.reshape(-1)]
-        return found, rows_xy, rows_proj
+            rows_of[pid.reshape(-1)]]
+        return pid.to(torch.int32), found, table32, rows_proj
 
-    found, rows_xy, rows_proj = rounds_input(S)
+    ids, found, table32, rows_proj = rounds_input(S, n)
 
     S_ipa = ipa_slots(n)                  # the IPA's two-set MSM
     idx = torch.randint(0, acc_pts.shape[2], (S_ipa - S_ipa // 2,),
                         generator=gen)
     buckets_ipa = torch.cat([ctx.identity_like((S_ipa // 2,), device),
                              acc_pts[:, :, idx.to(device)]], dim=2)
-    found_ipa_c, rows_xy_ipa, _ = rounds_input(S_ipa)
+    ids_ipa, found_ipa_c, table32_ipa, _ = rounds_input(S_ipa, 2 * n + 2)
     pid_ipa = torch.randint(0, m, (S_ipa,), generator=gen).to(device)
     found_ipa = (torch.rand(S_ipa, generator=gen) < 0.7).to(torch.int32)
     found_ipa[-1] = 1
@@ -269,71 +303,95 @@ def phase_kernels(device, n, seed, reps=5):
     imad = imad_per_mont_mul(ctx)
     nl = L // 2
     w32 = 4                               # the kernels move 32-bit words
+    pt_words = 3 * nl
 
-    def rounds_work(found_k, row_words, empty_muls):
+    def rounds_work(found_k, row_words, empty_muls, ids_read=False):
         """(bytes, IMADs) of the rounds the data needs: the accumulators
-        read and written once, `found` read, a row read only where its slot
-        is occupied; an occupied slot's add takes 11 (mixed) or 12
-        products, an empty one `empty_muls` (a projective add of the
-        identity is (X*Y : Y*Y : Z*Y), 3 products; the mixed kernel keeps
-        the slot, 0)."""
+        read and written once, `found` read, a row (and, for kernel 1, its
+        point id) read only where its slot is occupied; an occupied slot's
+        add takes 11 (mixed) or 12 products, an empty one `empty_muls` (a
+        projective add of the identity is (X*Y : Y*Y : Z*Y), 3 products;
+        the mixed kernel keeps the slot, 0)."""
         slots = found_k.numel()
         live = int(found_k.sum())
         full = 11 if row_words == 2 * nl else 12
-        n_bytes = (2 * 3 * nl * found_k.shape[-1] + live * row_words
-                   + slots) * w32
+        n_bytes = (2 * pt_words * found_k.shape[-1]
+                   + live * (row_words + ids_read) + slots) * w32
         return n_bytes, (live * full + (slots - live) * empty_muls) * imad
 
-    # (name, wrapper, plain, args, bare launch on packed operands,
+    def packed(x):
+        return pack32(x, 1).contiguous()
+
+    def in_place(bare):
+        """A bare launch of a kernel that updates its packed accumulators
+        in place (kernels 2, 4, 5), on operands packed beforehand."""
+        def make(args):
+            ops = ek.pack_rounds(*args)
+            return lambda: bare(*ops, ctx)
+        return make
+
+    def bare_mixed(args):
+        out = torch.empty_like(args[0])
+        return lambda: ek.bucket_rounds_mixed32(out, *args, ctx)
+
+    def bare_add(args):
+        P32, Q32 = (packed(a) for a in args)
+        return lambda: ek.ec_add32(P32, Q32, ctx)
+
+    # (name, wrapper, plain, args, bare launch factory,
     #  (bytes the kernel moves, IMADs of its mont_muls), shape);
     # the first record of a name is its kernel-line record
     chunk_shape = {"S": S, "R_c": R_c}
+    mixed_args = (packed(buckets), table32, ids, found)
+    mixed_args_ipa = (packed(buckets_ipa), table32_ipa, ids_ipa,
+                      found_ipa_c)
     cases = [
         ("bucket_rounds_mixed", ek.bucket_rounds_mixed,
-         ek.bucket_rounds_mixed_plain, (buckets, rows_xy, found),
-         ek.bucket_rounds_mixed32, rounds_work(found, 2 * nl, 0),
-         chunk_shape),
+         ek.bucket_rounds_mixed_plain, mixed_args, bare_mixed,
+         rounds_work(found, 2 * nl, 0, ids_read=True),
+         {**chunk_shape, "table_rows": n}),
         ("bucket_rounds_mixed", ek.bucket_rounds_mixed,
-         ek.bucket_rounds_mixed_plain,
-         (buckets_ipa, rows_xy_ipa, found_ipa_c), ek.bucket_rounds_mixed32,
-         rounds_work(found_ipa_c, 2 * nl, 0), {"S": S_ipa, "R_c": R_c}),
+         ek.bucket_rounds_mixed_plain, mixed_args_ipa, bare_mixed,
+         rounds_work(found_ipa_c, 2 * nl, 0, ids_read=True),
+         {"S": S_ipa, "R_c": R_c, "table_rows": 2 * n + 2}),
         ("bucket_rounds_proj", ek.bucket_rounds_proj,
          ek.bucket_rounds_proj_plain, (buckets, rows_proj, found),
-         ek.bucket_rounds_proj32, rounds_work(found, 3 * nl, 3),
+         in_place(ek.bucket_rounds_proj32), rounds_work(found, 3 * nl, 3),
          chunk_shape),
-        ("ec_add", ek.ec_add, ek.ec_add_plain, (P, Q), None,
-         (3 * 3 * nl * n_add * w32, n_add * 12 * imad), {"n": n_add}),
+        ("ec_add", ek.ec_add, ek.ec_add_plain, (P, Q), bare_add,
+         (3 * pt_words * n_add * w32, n_add * 12 * imad), {"n": n_add}),
         ("bucket_round_add", ek.bucket_round_add,
          ek.bucket_round_add_plain, (buckets_round, rows_ipa, found_ipa),
-         ek.bucket_round_add32, rounds_work(found_ipa, 3 * nl, 3),
+         in_place(ek.bucket_round_add32), rounds_work(found_ipa, 3 * nl, 3),
          {"S": S_ipa}),
         # kernel 5: the same round on the same inputs, so kernel 4's bound
         ("bucket_round_add_mxu", ek.bucket_round_add_mxu,
          ek.bucket_round_add_mxu_plain,
-         (buckets_round, rows_ipa, found_ipa), ek.bucket_round_add_mxu32,
+         (buckets_round, rows_ipa, found_ipa),
+         in_place(ek.bucket_round_add_mxu32),
          rounds_work(found_ipa, 3 * nl, 3), {"S": S_ipa}),
     ]
+    cases += form_cases(ctx, proj, gen, device, [
+        ("r1cs", combine_shapes(r1cs_msm_n, 2)),
+        ("msm", combine_shapes(n, 1))])
+
     records = {}
     for (name, kernel, plain, args, bare, (n_bytes, n_imad),
          shape) in cases:
         got = kernel(*args, ctx)
         _sync(device)
         plain_ms, want = time_ms(lambda: plain(*args, ctx), device, 1)
-        err = int((got - want).abs().max())
-        if err != 0 or got.shape != want.shape:
+        if got.shape != want.shape or not torch.equal(got, want):
+            err = int((got.long() - want.long()).abs().max()) \
+                if got.shape == want.shape else -1
             raise AssertionError(f"{name} at {shape}: kernel differs from "
-                                 f"its plain version (max abs limb error "
+                                 f"its plain version (max abs word error "
                                  f"{err})")
+        err = 0
         wrapper_ms, _ = time_ms(lambda: kernel(*args, ctx), device, reps)
         ms = None                         # the bare kernel: on the card only
         if device.type == "cuda":
-            if bare is None:
-                P32, Q32 = (pack32(a, 1).contiguous() for a in args)
-                launch = lambda: ek.ec_add32(P32, Q32, ctx)
-            else:
-                packed = ek.pack_rounds(*args)
-                launch = lambda: bare(*packed, ctx)   # in place; same work
-            ms, _ = time_ms(launch, device, reps)
+            ms, _ = time_ms(bare(args), device, reps)
         bound_ms, bound_by = bound(n_bytes, n_imad)
         rec = {"name": name, "route": "cuda", "source": SOURCES[name],
                "replaces": REPLACES[name], "max_abs_err": err, "ms": ms,
@@ -341,11 +399,13 @@ def phase_kernels(device, n, seed, reps=5):
                "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": None}
         emit({"phase": "kernel", **rec, "shape": shape})
-        if name in records:               # a further shape of a path
-            records[name].setdefault("other_shapes", []).append(
-                {"shape": shape, "max_abs_err": err, "ms": ms,
-                 "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
-                 "bound_ms": bound_ms})
+        sub = {"shape": shape, "max_abs_err": err, "ms": ms,
+               "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        if "form" in shape:               # a sequential form of kernel 3
+            records[name].setdefault("forms", []).append(sub)
+        elif name in records:             # a further shape of a path
+            records[name].setdefault("other_shapes", []).append(sub)
         else:
             records[name] = {**rec, "shape": shape}
 
@@ -368,6 +428,92 @@ def phase_kernels(device, n, seed, reps=5):
     emit({"phase": "kernels", "S": S, "S_ipa": S_ipa, "R_c": R_c,
           "seconds": time.time() - t0})
     return records
+
+
+def form_cases(ctx, proj, gen, device, paths):
+    """Phase 2's cases of kernel 3's sequential forms, at each path's
+    combine shapes (`combine_shapes`): the split fold and the duplicate-row
+    fold over W' rows of B buckets, the row and column sums, the window
+    totals, and (the n-point MSM, whose `msm_device` runs it) the window
+    Horner.  The buckets are projective points, 1 in 16 the identity."""
+    imad = imad_per_mont_mul(ctx)
+    nl = ctx.fp.L // 2
+    pt_bytes = 3 * nl * 4
+    add = 12 * imad
+    m = proj.shape[2]
+
+    def points(count):
+        pick = torch.randint(0, m, (count,), generator=gen).to(device)
+        pts = proj[:, :, pick]
+        pts[:, :, ::16] = ctx.identity_like((1,), device)
+        return pack32(pts, 1).contiguous()
+
+    def gather_case(path, form, sh, P32, idx, from_identity):
+        ncols, n_out = P32.shape[2], idx.shape[0]
+        entries = int((idx >= 0).sum())
+        starts = 0 if from_identity else int((idx >= 0).any(1).sum())
+        work = ((ncols + n_out) * pt_bytes + idx.numel() * 4,
+                (entries - starts) * add)
+        shape = {"form": form, "path": path, "n_out": n_out,
+                 "m": idx.shape[1], "c": sh["c"]}
+
+        def bare(args):
+            out = torch.empty((3, nl, n_out), dtype=torch.int32,
+                              device=device)
+            return lambda: ek.ec_gather_sum32(out, *args, ctx)
+        return ("ec_add", ek.ec_gather_sum, ek.ec_gather_sum_plain,
+                (P32, idx, from_identity), bare, work, shape)
+
+    cases = []
+    for path, sh in paths:
+        B = 1 << sh["c"]
+        Wr, W, G, K = sh["W_rows"], sh["W"], sh["G"], sh["K"]
+        raw = points(Wr * B)
+        index = lambda key, make: msm_mod._index_on(key, make, device)
+        split_idx = index(("split", Wr, B,
+                           tuple(sh["ranges"][:, 0].tolist()),
+                           tuple(sh["splits"][:, 0].tolist())),
+                          lambda: msm_mod._split_fold_index(
+                              Wr, B, sh["ranges"][:, 0].tolist(),
+                              sh["splits"][:, 0].tolist()))
+        cases.append(gather_case(path, "split_fold", sh, raw, split_idx,
+                                 False))
+        dup_idx = index(("dup", W, B, sh["dup"]),
+                        lambda: msm_mod._dup_fold_index(W, B, sh["dup"]))
+        cases.append(gather_case(path, "dup_fold", sh, raw, dup_idx, False))
+        base = points(W * B)
+        rowcol_idx = index(("rowcol", W, G, K),
+                           lambda: msm_mod._rowcol_index(W, G, K))
+        cases.append(gather_case(path, "rowcol", sh, base, rowcol_idx,
+                                 True))
+        rowsum = points(W * G).reshape(3, nl, W, G)
+        colsum = points(W * K).reshape(3, nl, W, K)
+        dbl = sh["c"] - (sh["c"] + 1) // 2
+        adds = W * (2 * (G - 1) + 2 * (K - 1) + dbl + 1)
+
+        def bare_totals(args, W=W):
+            out = torch.empty((3, nl, W), dtype=torch.int32, device=device)
+            return lambda: ek.ec_window_totals32(out, *args, ctx)
+        cases.append(("ec_add", ek.ec_window_totals,
+                      ek.ec_window_totals_plain, (rowsum, colsum, dbl),
+                      bare_totals,
+                      ((W * (G + K) + W) * pt_bytes, adds * add),
+                      {"form": "window_totals", "path": path, "W": W,
+                       "G": G, "K": K, "dbl": dbl}))
+        if sh["sets"] == 1:
+            totals = points(W)
+            c = sh["c"]
+
+            def bare_horner(args):
+                out = torch.empty((3, nl, 1), dtype=torch.int32,
+                                  device=device)
+                return lambda: ek.ec_horner32(out, *args, ctx)
+            cases.append(("ec_add", ek.ec_horner, ek.ec_horner_plain,
+                          (totals, W, c), bare_horner,
+                          ((W + 1) * pt_bytes, W * (c + 1) * add),
+                          {"form": "horner", "path": path, "sets": 1,
+                           "wps": W, "c": c}))
+    return cases
 
 
 def _bench_input(n, seed, bits):
@@ -499,9 +645,10 @@ def phase_ipa(device, n, seed, reps):
     per_call = {}               # kernel launches of one call of each kind
 
     def counted(kind, fn):
-        before = dict(ek.launches)
+        before = launch_counts()
         out = fn()
-        per_call[kind] = {k: v - before[k] for k, v in ek.launches.items()}
+        per_call[kind] = {k: v - before[k] for k, v in
+                          launch_counts().items()}
         return out
 
     def prove(ec_kernel="chunk", profile=False):
@@ -576,6 +723,7 @@ def phase_ipa(device, n, seed, reps):
           "tampered_rejected": True,
           "round_kernel_proof_identical": True, "setup_seconds": setup,
           "a": proof.a.to_bytes().hex()[-32:], "seconds": time.time() - t0})
+    return per_call
 
 
 def _agg_range_prover(seed, m, bits, g, h, device):
@@ -615,9 +763,10 @@ def phase_r1cs(device, m, bits, reps, ref):
     per_call = {}
 
     def counted(kind, fn):
-        before = dict(ek.launches)
+        before = launch_counts()
         out = fn()
-        per_call[kind] = {k: v - before[k] for k, v in ek.launches.items()}
+        per_call[kind] = {k: v - before[k] for k, v in
+                          launch_counts().items()}
         return out
 
     def prove(seed, profile=False):
@@ -682,6 +831,7 @@ def phase_r1cs(device, m, bits, reps, ref):
           "matches_reference": True, "host_check_seconds": host_check,
           "tampered_rejected": True, "launches_per_call": per_call,
           "setup_seconds": setup, "seconds": time.time() - t0})
+    return per_call
 
 
 def _ipa_round_schedule(n, seed, device):
@@ -768,17 +918,41 @@ def phase_mxu_race(device, n, seed):
           "seconds": time.time() - t0})
 
 
-def _run_path(name, drive):
+def launch_counts():
+    """Kernel launches so far: per kernel, and kernel 3's also per form
+    (`ec_add:<form>`, `ek.form_launches`)."""
+    return {**ek.launches,
+            **{f"ec_add:{k}": v for k, v in ek.form_launches.items()}}
+
+
+def _run_path(name, drive, per_call=None):
     """Drive one path with the launch counts at 0 and read them after:
-    -> the path's counts; each kernel of the path must have launched."""
+    -> the path's counts; each kernel (and form of kernel 3) of the path
+    must have launched.
+    per_call: a dict that gets what drive() returns (its per-call
+    counts)."""
     ek.reset_launches()
-    drive()
-    counts = dict(ek.launches)
+    out = drive()
+    counts = launch_counts()
+    if per_call is not None:
+        per_call[name] = out
     for kernel in PATHS[name]:
         if counts[kernel] <= 0:
             raise AssertionError(f"{kernel} never launched on the {name} "
                                  "path")
     return counts
+
+
+def add_launches(records, by_path):
+    """Each record's launches over the paths' runs, in total and by path;
+    kernel 3's sequential forms' sub-records by their kernel form."""
+    for name, rec in records.items():
+        rec["launches"] = sum(c[name] for c in by_path.values())
+        rec["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
+    for sub in records["ec_add"].get("forms", []):
+        key = "ec_add:" + FORM_KERNEL[sub["shape"]["form"]]
+        sub["launches"] = sum(c[key] for c in by_path.values())
+        sub["launches_by_path"] = {p: c[key] for p, c in by_path.items()}
 
 
 def main():
@@ -800,20 +974,22 @@ def main():
             phase_msm("cuda", args.n, args.seed + 1, bits=True, reps=3)
 
         ref = json.loads(R1CS_REFERENCE.read_text())
+        per_call = {}
         by_path = {
             "msm": _run_path("msm", msm_path),
             "ipa": _run_path("ipa", lambda: phase_ipa(
-                "cuda", args.n, args.seed + 2, reps=3)),
+                "cuda", args.n, args.seed + 2, reps=3), per_call),
             "r1cs": _run_path("r1cs", lambda: phase_r1cs(
-                "cuda", ref["m"], ref["bits"], 3, ref)),
+                "cuda", ref["m"], ref["bits"], 3, ref), per_call),
             "mxu_race": _run_path("mxu_race", lambda: phase_mxu_race(
                 "cuda", args.n, args.seed + 3)),
         }
-        for name, rec in records.items():
-            rec["launches"] = sum(c[name] for c in by_path.values())
-            rec["launches_by_path"] = {p: c[name] for p, c in
-                                       by_path.items()}
+        add_launches(records, by_path)
         emit({"phase": "launches", "launches": by_path,
+              "per_r1cs_proof": per_call["r1cs"]["prove"],
+              "per_r1cs_verify": per_call["r1cs"]["verify"],
+              "per_ipa_proof": per_call["ipa"]["prove_chunk"],
+              "per_ipa_verify": per_call["ipa"]["verify"],
               "seconds": time.time() - t_start})
     print(smi, flush=True)
     emit({"kernels": [records[k] for k in REPLACES]})

@@ -33,10 +33,11 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _round_inputs(cv, seed, S, R_c, width, device):
+def _round_inputs(cv, seed, S, R_c, width, device, with_ids=False):
     """Accumulators (half identity), rows from a 16-point table (affine
     (X, Y) for width 2, projective for 3), ~70% occupancy, slot 0 doubling
-    in round 1."""
+    in round 1.  with_ids: also kernel 1's packed table and the point ids
+    (R_c, S) int32."""
     ctx = E.CurveCtx(cv)
     L = ctx.fp.L
     rnd = random.Random(seed)
@@ -54,6 +55,9 @@ def _round_inputs(cv, seed, S, R_c, width, device):
     found = (torch.rand((R_c, S), generator=gen) < 0.7).to(torch.int32)
     found[0, 0] = found[1, 0] = 1
     rows = rows_all[pid.reshape(-1).to(device)]
+    if with_ids:
+        return (ctx, acc, rows, found.to(device), proj, ek.affine_rows32(aff),
+                pid.to(torch.int32).to(device))
     return ctx, acc, rows, found.to(device), proj
 
 
@@ -63,17 +67,29 @@ def _round_inputs(cv, seed, S, R_c, width, device):
 def test_kernel_matches_plain_on_card(kernel, curve, cuda_device):
     S, R_c = 1000, 5                      # S not a multiple of the block
     width = 2 if kernel == "mixed" else 3
-    ctx, acc, rows, found, _ = _round_inputs(CURVES[curve], 9, S, R_c,
-                                             width, cuda_device)
+    ctx, acc, rows, found, _, table32, ids = _round_inputs(
+        CURVES[curve], 9, S, R_c, width, cuda_device, with_ids=True)
     ek.reset_launches()
     if kernel == "ec_add":
         P, Q = acc, acc.flip(-1).contiguous()
         got, want = ek.ec_add(P, Q, ctx), ek.ec_add_plain(P, Q, ctx)
         key = "ec_add"
     elif kernel == "mixed":
-        got = ek.bucket_rounds_mixed(acc, rows, found, ctx)
-        want = ek.bucket_rounds_mixed_plain(acc, rows, found, ctx)
-        key = "bucket_rounds_mixed"
+        # kernel 1 gathers its rows from the packed table by point id
+        acc32 = pack32(acc, 1)
+        got = unpack32(ek.bucket_rounds_mixed(acc32, table32, ids, found,
+                                              ctx), 1)
+        want = unpack32(ek.bucket_rounds_mixed_plain(acc32, table32, ids,
+                                                     found, ctx), 1)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        out = torch.empty_like(acc32)     # the bare launch, in place too
+        ek.bucket_rounds_mixed32(out, acc32, table32, ids, found, ctx)
+        ek.bucket_rounds_mixed32(acc32, acc32, table32, ids, found, ctx)
+        assert torch.equal(unpack32(out, 1), want)
+        assert torch.equal(unpack32(acc32, 1), want)
+        assert ek.launches["bucket_rounds_mixed"] == 3
+        return
     else:
         got = ek.bucket_rounds_proj(acc, rows, found, ctx)
         want = ek.bucket_rounds_proj_plain(acc, rows, found, ctx)
@@ -84,12 +100,98 @@ def test_kernel_matches_plain_on_card(kernel, curve, cuda_device):
     if kernel == "ec_add":           # the bare launch on packed operands
         bare = ek.ec_add32(pack32(P, 1).contiguous(),
                            pack32(Q, 1).contiguous(), ctx)
+        packed = ek.ec_add(pack32(P, 1), pack32(Q, 1), ctx)
     else:
         bare, rows32, found32 = ek.pack_rounds(acc, rows, found)
-        (ek.bucket_rounds_mixed32 if kernel == "mixed"
-         else ek.bucket_rounds_proj32)(bare, rows32, found32, ctx)
+        ek.bucket_rounds_proj32(bare, rows32, found32, ctx)
+        packed = ek.bucket_rounds_proj(pack32(acc, 1), rows, found, ctx)
     assert torch.equal(unpack32(bare, 1), want)
-    assert ek.launches[key] == 2
+    assert torch.equal(unpack32(packed, 1), want)     # packed operands
+    assert ek.launches[key] == 3
+
+
+def _packed_points(ctx, proj, count, seed, device):
+    """count projective points drawn from `proj`, 1 in 16 the identity,
+    packed (3, NL, count)."""
+    gen = torch.Generator().manual_seed(seed)
+    pts = proj[:, :, torch.randint(0, proj.shape[2], (count,),
+                                   generator=gen).to(device)]
+    pts[:, :, ::16] = ctx.identity_like((1,), device)
+    return pack32(pts, 1).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("curve", sorted(CURVES))
+@pytest.mark.parametrize("form", ["split_fold", "dup_fold", "rowcol",
+                                  "window_totals", "horner"])
+def test_sequential_form_matches_plain_on_card(form, curve, cuda_device):
+    """Kernel 3's sequential forms at the combine shapes of a two-set MSM
+    at c = 8 (the IPA's and the range proof's; `window_plan(dup=True)`) and,
+    for the Horner, of a one-set MSM (`msm_device`): bit-exact against
+    their plain versions, one launch each."""
+    cv = CURVES[curve]
+    ctx, _, _, _, proj = _round_inputs(cv, 21, 64, 2, 3, cuda_device)
+    c, B = 8, 256
+    ranges, splits, dup = M.window_plan(ctx, c, n_sets=2, dup=True)
+    Wr = ranges.shape[0]
+    W = Wr - sum(g - 1 for _, g in dup)
+    G = K = 16
+    if form in ("split_fold", "dup_fold", "rowcol"):
+        if form == "rowcol":
+            P32 = _packed_points(ctx, proj, W * B, 3, cuda_device)
+            idx = M._rowcol_index(W, G, K)
+        elif form == "split_fold":
+            P32 = _packed_points(ctx, proj, Wr * B, 4, cuda_device)
+            idx = M._split_fold_index(Wr, B, ranges[:, 0].tolist(),
+                                      splits[:, 0].tolist())
+        else:
+            P32 = _packed_points(ctx, proj, Wr * B, 5, cuda_device)
+            idx = M._dup_fold_index(W, B, dup)
+        idx = torch.as_tensor(idx, device=cuda_device)
+        args = (P32, idx, form == "rowcol")
+        wrapper, plain = ek.ec_gather_sum, ek.ec_gather_sum_plain
+    elif form == "window_totals":
+        rowsum = _packed_points(ctx, proj, W * G, 6, cuda_device)
+        colsum = _packed_points(ctx, proj, W * K, 7, cuda_device)
+        args = (rowsum.reshape(3, -1, W, G), colsum.reshape(3, -1, W, K), 4)
+        wrapper, plain = ek.ec_window_totals, ek.ec_window_totals_plain
+    else:
+        wps = -(-cv.fr.n_bits // c)
+        args = (_packed_points(ctx, proj, wps, 8, cuda_device), wps, c)
+        wrapper, plain = ek.ec_horner, ek.ec_horner_plain
+    ek.reset_launches()
+    got = wrapper(*args, ctx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain(*args, ctx))
+    assert ek.launches["ec_add"] == 1
+    assert sum(ek.form_launches.values()) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("curve", sorted(CURVES))
+def test_bucket_rounds_mixed_table_on_card(curve, cuda_device):
+    """Kernel 1 at the IPA MSM's S = 16896 slots, R_c = 16 rounds, from a
+    packed table of 4098 rows (16 points repeated) by a random slot grid:
+    bit-exact against its plain version."""
+    cv = CURVES[curve]
+    ctx = E.CurveCtx(cv)
+    S, R_c, n_rows = 16896, 16, 4098
+    rnd = random.Random(44)
+    gen = torch.Generator().manual_seed(44)
+    pts = [bt.G1.random(rnd, cv) for _ in range(16)]
+    aff, _ = E.to_device_points_affine(pts, ctx, cuda_device)
+    table32 = ek.affine_rows32(aff)[torch.arange(n_rows,
+                                                 device=cuda_device) % 16]
+    proj = E.to_device_points([p + p for p in pts], ctx, cuda_device)
+    acc32 = _packed_points(ctx, proj, S, 9, cuda_device)
+    ids = torch.randint(0, n_rows, (R_c, S), generator=gen).to(
+        torch.int32).to(cuda_device)
+    found = (torch.rand((R_c, S), generator=gen) < 0.7).to(
+        torch.int32).to(cuda_device)
+    got = ek.bucket_rounds_mixed(acc32, table32, ids, found, ctx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ek.bucket_rounds_mixed_plain(acc32, table32,
+                                                         ids, found, ctx))
 
 
 @pytest.mark.cuda
@@ -130,6 +232,9 @@ def test_msm_hybrid_on_card_matches_host(bits, cuda_device):
     assert got.to_bytes() == want.to_bytes()
     key = "bucket_rounds_proj" if bits else "bucket_rounds_mixed"
     assert ek.launches[key] > 0 and ek.launches["ec_add"] > 0
+    # the combine: the two folds, the row and column sums, the totals
+    assert ek.form_launches["gather_sum"] == 3
+    assert ek.form_launches["window_totals"] == 1
 
 
 @pytest.mark.cuda

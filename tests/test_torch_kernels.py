@@ -26,6 +26,7 @@ from bulletproofs_tpu_torch.config import BLS381, BN254
 from bulletproofs_tpu_torch.ops import ec as E
 from bulletproofs_tpu_torch.ops import ec_kernels as ek
 from bulletproofs_tpu_torch.ops.ec_host import G1
+from bulletproofs_tpu_torch.ops.field import pack32, unpack32
 
 # One torch thread: the suite runs several test processes at once, and
 # each process's own thread pool would oversubscribe the cores.
@@ -46,10 +47,11 @@ def _jax_points(jcv, seed, m):
     return proj, np.asarray(aff)
 
 
-def _round_inputs(jcv, seed, S, R_c, width):
+def _round_inputs(jcv, seed, S, R_c, width, with_table=False):
     """Accumulators (half identity, half random), rows gathered from a
     16-point table (affine (X, Y) rows for width 2, projective for 3), a
-    ~70% occupancy mask, and a forced doubling in slot 0."""
+    ~70% occupancy mask, and a forced doubling in slot 0.  with_table:
+    also the table's rows (16, width*L) and the point ids (R_c, S)."""
     L = jcv.fp.n_limbs
     rs = np.random.default_rng(seed)
     proj, aff = _jax_points(jcv, seed, 16)
@@ -63,43 +65,71 @@ def _round_inputs(jcv, seed, S, R_c, width):
     pid[1, 0] = pid[0, 0]
     found = (rs.random((R_c, S)) < 0.7).astype(np.int32)
     found[0, 0] = found[1, 0] = 1
-    return (np.ascontiguousarray(acc), rows_all[pid.reshape(-1)], found)
+    out = (np.ascontiguousarray(acc), rows_all[pid.reshape(-1)], found)
+    return out + (rows_all, pid) if with_table else out
+
+
+def _table32(rows_all):
+    """Affine (X, Y) limb rows (n, 2L) -> kernel 1's packed table
+    (n, 2NL) int32."""
+    n = rows_all.shape[0]
+    rows = torch.as_tensor(rows_all.astype(np.int64)).reshape(n, 2, -1)
+    return pack32(rows, 2).reshape(n, -1).contiguous()
 
 
 @pytest.mark.parametrize("width", [2, 3], ids=["mixed", "proj"])
 def test_bucket_rounds_plain_match_pallas_interpret(width, monkeypatch):
+    """The Pallas kernel is fed the gathered rows table[pid]; the port's
+    kernel 1 the packed accumulators, the packed table and the point ids
+    (its slot grid), kernel 2 the rows with limb and with packed
+    accumulators."""
     monkeypatch.setenv("BP_PALLAS_INTERPRET", "1")
     from bulletproofs_tpu.ops.ec_pallas import (
         bucket_rounds_chunk_pallas, bucket_rounds_chunk_pallas_mixed)
 
     S, R_c = 512, 4
     jctx = ej.CurveCtx(JBLS381)
-    acc, rows, found = _round_inputs(JBLS381, 11 + width, S, R_c, width)
+    acc, rows, found, rows_all, pid = _round_inputs(
+        JBLS381, 11 + width, S, R_c, width, with_table=True)
     jax_kernel = (bucket_rounds_chunk_pallas_mixed if width == 2
                   else bucket_rounds_chunk_pallas)
     want = np.asarray(jax_kernel(jnp.asarray(acc), jnp.asarray(rows),
                                  jnp.asarray(found), jctx))
 
     ctx = E.CurveCtx(BLS381)
-    port = ek.bucket_rounds_mixed if width == 2 else ek.bucket_rounds_proj
-    got = port(E.from_jax_points(acc, "cpu"),
-               torch.as_tensor(rows.astype(np.int64)),
-               torch.as_tensor(found), ctx)
+    acc_t = E.from_jax_points(acc, "cpu")
+    found_t = torch.as_tensor(found)
+    if width == 2:
+        got32 = ek.bucket_rounds_mixed(
+            pack32(acc_t, 1), _table32(rows_all),
+            torch.as_tensor(pid.astype(np.int32)), found_t, ctx)
+        np.testing.assert_array_equal(E.to_jax_points(unpack32(got32, 1)),
+                                      want)
+        return
+    rows_t = torch.as_tensor(rows.astype(np.int64))
+    got = ek.bucket_rounds_proj(acc_t, rows_t, found_t, ctx)
     np.testing.assert_array_equal(E.to_jax_points(got), want)
+    got32 = ek.bucket_rounds_proj(pack32(acc_t, 1), rows_t, found_t, ctx)
+    assert got32.dtype == torch.int32
+    np.testing.assert_array_equal(E.to_jax_points(unpack32(got32, 1)), want)
 
 
 def test_mixed_rounds_equal_general_rounds_as_group_elements():
     """The mixed add (Z2 == 1 rows) and the general add of the same affine
     rows give different projective representatives of the same points."""
     S, R_c = 64, 3
-    acc, rows_xy, found = _round_inputs(JBN254, 5, S, R_c, 2)
+    acc, rows_xy, found, rows_all, pid = _round_inputs(JBN254, 5, S, R_c, 2,
+                                                       with_table=True)
     L = JBN254.fp.n_limbs
     ctx = E.CurveCtx(BN254)
     one = np.asarray(ctx.fp.one_m).reshape(1, L)
     rows_xyz = np.concatenate(
         [rows_xy, np.broadcast_to(one, (R_c * S, L))], axis=1)
     t = lambda a: torch.as_tensor(np.asarray(a).astype(np.int64))
-    mixed = ek.bucket_rounds_mixed(t(acc), t(rows_xy), t(found), ctx)
+    mixed = unpack32(ek.bucket_rounds_mixed(
+        pack32(t(acc), 1), _table32(rows_all),
+        torch.as_tensor(pid.astype(np.int32)),
+        torch.as_tensor(found), ctx), 1)
     general = ek.bucket_rounds_proj(t(acc), t(rows_xyz), t(found), ctx)
     assert E.from_device_points(mixed, ctx) == \
         E.from_device_points(general, ctx)
@@ -142,16 +172,32 @@ def test_wrappers_reject_mismatched_shapes():
     ctx = E.CurveCtx(BLS381)
     L = ctx.fp.L
     buckets = torch.zeros((3, L, 8), dtype=torch.int64)
-    with pytest.raises(ValueError):
-        ek.bucket_rounds_mixed(buckets, torch.zeros((16, 3 * L),
-                                                    dtype=torch.int64),
-                               torch.zeros((2, 8), dtype=torch.int32), ctx)
+    acc32 = pack32(buckets, 1)
+    table32 = torch.zeros((16, L), dtype=torch.int32)
+    ids = torch.zeros((2, 8), dtype=torch.int32)
+    with pytest.raises(ValueError):                   # limb accumulators
+        ek.bucket_rounds_mixed(buckets, table32, ids, ids, ctx)
+    with pytest.raises(ValueError):                   # ids of another S
+        ek.bucket_rounds_mixed(acc32, table32, ids[:, :4], ids, ctx)
+    with pytest.raises(ValueError):                   # int64 ids
+        ek.bucket_rounds_mixed(acc32, table32, ids.long(), ids, ctx)
+    with pytest.raises(ValueError):                   # a projective table
+        ek.bucket_rounds_mixed(acc32, torch.zeros((16, 3 * L // 2),
+                                                  dtype=torch.int32),
+                               ids, ids, ctx)
     with pytest.raises(ValueError):
         ek.ec_add(buckets, buckets[:, :, :4], ctx)
+    with pytest.raises(ValueError):                   # mixed forms
+        ek.ec_add(buckets, acc32, ctx)
+    with pytest.raises(ValueError):                   # limb points
+        ek.ec_gather_sum(buckets, ids, True, ctx)
+    with pytest.raises(ValueError):                   # 5 totals, sets of 2
+        ek.ec_horner(acc32[:, :, :5], 2, 4, ctx)
 
 
 @pytest.mark.parametrize("kernel", ["mixed", "proj", "ec_add", "round",
-                                    "round_mxu"])
+                                    "round_mxu", "gather_sum",
+                                    "window_totals", "horner"])
 def test_packed_launches_refuse_cpu_tensors(kernel):
     """The `*32` functions only launch: given CPU tensors they raise and
     count nothing, with no plain version to fall back to."""
@@ -173,10 +219,20 @@ def test_packed_launches_refuse_cpu_tensors(kernel):
         elif kernel == "round_mxu":
             ek.bucket_round_add_mxu32(acc32, rows32, found32[0], ctx)
         elif kernel == "mixed":
-            ek.bucket_rounds_mixed32(acc32, rows32, found32, ctx)
+            ek.bucket_rounds_mixed32(acc32.clone(), acc32, rows32, found32,
+                                     found32, ctx)
+        elif kernel == "gather_sum":
+            ek.ec_gather_sum32(acc32.clone(), acc32, found32, True, ctx)
+        elif kernel == "window_totals":
+            ek.ec_window_totals32(acc32[:, :, :2].clone(),
+                                  acc32.reshape(3, L // 2, 2, 4),
+                                  acc32.reshape(3, L // 2, 2, 4), 2, ctx)
+        elif kernel == "horner":
+            ek.ec_horner32(acc32[:, :, :2].clone(), acc32, 4, 2, ctx)
         else:
             ek.bucket_rounds_proj32(acc32, rows32, found32, ctx)
     assert ek.launches == {k: 0 for k in ek.launches}
+    assert ek.form_launches == {k: 0 for k in ek.form_launches}
 
 
 # ---------------------------------------------------------------------------
@@ -279,3 +335,110 @@ def test_chip_smoke_mxu_race_rehearses_on_cpu(capsys):
     assert line["phase"] == "mxu_race" and line["buckets_identical"]
     assert set(line["us_per_round"]) == {"bucket_round_add",
                                          "bucket_round_add_mxu"}
+
+
+# ---------------------------------------------------------------------------
+# Kernel 3's sequential forms: each plain version against the Python loop of
+# `ec.ec_add` it replaces (the loops the MSM's combine ran before; the
+# combine as a whole is held against the JAX package in test_torch_msm.py)
+# ---------------------------------------------------------------------------
+
+def _bucket_array(cv, seed, W, B):
+    """(3, L, W, B) projective points from 12 random ones (sums P + P, so
+    Z != 1), one in 7 the identity, and the same packed."""
+    ctx = E.CurveCtx(cv)
+    rnd = random.Random(seed)
+    base = E.to_device_points([p + p for p in (G1.random(rnd, cv)
+                                               for _ in range(12))],
+                              ctx, "cpu")
+    pick = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, 12, W * B))
+    pts = base[:, :, pick]
+    pts[:, :, ::7] = ctx.identity_like((1,), "cpu")
+    pts = pts.reshape(3, ctx.fp.L, W, B)
+    return ctx, pts, pack32(pts, 1)
+
+
+def _loop_sum(ctx, cols, from_identity):
+    """The combine's loop: acc = identity (or the first column), then
+    acc = ec_add(acc, column) for each further column."""
+    acc = ctx.identity_like(cols[0].shape[2:], "cpu") if from_identity \
+        else cols[0]
+    for col in (cols if from_identity else cols[1:]):
+        acc = E.ec_add(acc, col, ctx)
+    return acc
+
+
+@pytest.mark.parametrize("curve", sorted(CURVES))
+def test_sequential_forms_match_python_loops(curve):
+    """W = 3 windows of B = 16 buckets (c = 4, G = K = 4): the row and
+    column sums (from the identity), a split fold (window 1: range 5,
+    split 3, from the first sub-bucket, the rest identities), a duplicate
+    row folded into window 1, the weighted running sums with 2 doublings,
+    and a Horner over 2 sets of 2 windows, each limb for limb."""
+    from bulletproofs_tpu_torch.ops import msm as M
+    cv = CURVES[curve][0]
+    W, B, G, K = 3, 16, 4, 4
+    ctx, bk, bk32 = _bucket_array(cv, 31, W + 1, B)
+    ek.reset_launches()
+
+    # row and column sums (`bucket_rowcol`), one gather-sum
+    base, base32 = bk[:, :, :W], bk32[:, :, :W].contiguous()
+    rowsum, colsum = M.bucket_rowcol(base32, ctx, 4)
+    grid = base.reshape(3, ctx.fp.L, W, G, K)
+    want_row = _loop_sum(ctx, [grid[..., k] for k in range(K)], True)
+    want_col = _loop_sum(ctx, [grid[..., g, :] for g in range(G)], True)
+    assert torch.equal(unpack32(rowsum, 1), want_row)
+    assert torch.equal(unpack32(colsum, 1), want_col)
+
+    # the split fold: window 1 has range 5 and split 3
+    ranges = np.array([[B], [5], [B]], np.int32)
+    splits = np.array([[1], [3], [1]], np.int32)
+    got = unpack32(M.fold_split_buckets(base32, ctx, ranges, splits), 1)
+    want = base.clone()
+    col = base[:, :, 1]
+    want[:, :, 1, :5] = _loop_sum(
+        ctx, [col[..., j * 5:(j + 1) * 5] for j in range(3)], False)
+    want[:, :, 1, 5:] = ctx.identity_like((B - 5,), "cpu")
+    assert torch.equal(got, want)
+
+    # the duplicate-row fold: row W is window 1's second row
+    got = unpack32(M._fold_dup_rows(bk32, ctx, ((1, 2),), W), 1)
+    want = base.clone()
+    want[:, :, 1] = _loop_sum(ctx, [bk[:, :, 1], bk[:, :, W]], False)
+    assert torch.equal(got, want)
+
+    # a gather row with no column is the identity; from_identity adds
+    # the first column to the identity (another representative)
+    idx = torch.tensor([[-1, -1], [0, -1], [0, -1]], dtype=torch.int32)
+    flat32 = base32.reshape(3, ctx.fp.L // 2, W * B)
+    got = unpack32(ek.ec_gather_sum(flat32, idx[:2], False, ctx), 1)
+    assert torch.equal(got[:, :, :1], ctx.identity_like((1,), "cpu"))
+    assert torch.equal(got[:, :, 1], base[:, :, 0, 0])
+    got = unpack32(ek.ec_gather_sum(flat32, idx[2:], True, ctx), 1)
+    assert torch.equal(got, E.ec_add(ctx.identity_like((1,), "cpu"),
+                                     base[:, :, 0, :1], ctx))
+
+    # the window totals (`window_totals`): the weighted running sums
+    def weighted(arr, m):
+        running = total = ctx.identity_like((W,), "cpu")
+        for t in range(m - 1):
+            running = E.ec_add(running, arr[..., m - 1 - t], ctx)
+            total = E.ec_add(total, running, ctx)
+        return total
+    wr, wc = weighted(want_row, G), weighted(want_col, K)
+    for _ in range(2):
+        wr = E.ec_add(wr, wr, ctx)
+    totals = M.window_totals(rowsum, colsum, ctx, 4)
+    assert torch.equal(unpack32(totals, 1), E.ec_add(wr, wc, ctx))
+
+    # the Horner over 2 sets of 2 windows (`combine_from_rowcol`)
+    t4 = bk[:, :, 0, :4]
+    acc = ctx.identity_like((2,), "cpu")
+    for w in (1, 0):
+        for _ in range(4):
+            acc = E.ec_add(acc, acc, ctx)
+        acc = E.ec_add(acc, t4.reshape(3, ctx.fp.L, 2, 2)[..., w], ctx)
+    got = ek.ec_horner(pack32(t4, 1).contiguous(), 2, 4, ctx)
+    assert torch.equal(unpack32(got, 1), acc)
+    assert ek.launches == {k: 0 for k in ek.launches}

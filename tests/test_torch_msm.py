@@ -109,9 +109,9 @@ def test_digits_slot_grid_and_occupancy_match(n):
     ("bls381", 256, 0), ("bls381", 256, 1), ("bls381", 1024, 0)])
 def test_bucket_arrays_match_jax(curve, n, pre_reduce):
     """Bucket arrays after the rounds, the sub-bucket fold and the
-    duplicate-row fold: projective rows, chunked or one round per launch
-    (`ec_kernel="round"`), give the JAX package's limbs exactly; the
-    mixed-add path gives the same points."""
+    duplicate-row fold (packed words, unpacked here): projective rows,
+    chunked or one round per launch (`ec_kernel="round"`), give the JAX
+    package's limbs exactly; the mixed-add path gives the same points."""
     cv, jcv = config.CURVES[curve], jconfig.CURVES[curve]
     ctx = E.CurveCtx(cv)
     c = M.pick_window(n)
@@ -133,14 +133,15 @@ def test_bucket_arrays_match_jax(curve, n, pre_reduce):
     plan = M.window_plan(ctx, c, dup=True)
     got, occ = M.bucket_accumulate(Pt, digits, ctx, c, rounds, plan=plan,
                                    pre_reduce=pre_reduce)
-    assert occ == int(jocc)
+    assert occ == int(jocc) and got.dtype == torch.int32
+    got = F.unpack32(got, 1)
     np.testing.assert_array_equal(E.to_jax_points(got), np.asarray(want))
     per_round, occ_r = M.bucket_accumulate(Pt, digits, ctx, c, rounds,
                                            plan=plan, pre_reduce=pre_reduce,
                                            ec_kernel="round")
     assert occ_r == occ
-    np.testing.assert_array_equal(E.to_jax_points(per_round),
-                                  np.asarray(want))
+    np.testing.assert_array_equal(
+        E.to_jax_points(F.unpack32(per_round, 1)), np.asarray(want))
     if pre_reduce == 0 and n == 256:
         Pa, affine = E.to_device_points_affine(pts, ctx, "cpu")
         assert affine
@@ -150,9 +151,9 @@ def test_bucket_arrays_match_jax(curve, n, pre_reduce):
         round_affine, _ = M.bucket_accumulate(Pa, digits, ctx, c, rounds,
                                               plan=plan, affine=True,
                                               ec_kernel="round")
-        flat = lambda b: E.from_device_points(b.reshape(3, ctx.fp.L, -1),
-                                              ctx)
-        assert flat(mixed) == flat(got) == flat(round_affine)
+        flat = lambda b: E.from_device_points(
+            F.unpack32(b, 1).reshape(3, ctx.fp.L, -1), ctx)
+        assert flat(mixed) == flat(F.pack32(got, 1)) == flat(round_affine)
 
 
 def test_overflowing_schedule_adds_nothing():
@@ -165,6 +166,32 @@ def test_overflowing_schedule_adds_nothing():
     assert buckets is None and occ == 64
     assert M._escalate(occ, 16, 0) == (16, 2)
     assert M._escalate(20, 16, 0) == (32, 0)
+
+
+def test_mixed_table_is_checked_against_the_points():
+    """Kernel 1 reads table rows by point id without bounds, so
+    `bucket_accumulate` refuses a packed table that is not (n, 2NL) int32
+    on the points' device; `mixed_table` packs one only where a pass runs
+    kernel 1."""
+    cv = config.BN254
+    ctx = E.CurveCtx(cv)
+    pts, ks = _msm_input(64, 4, cv)
+    P, affine = E.to_device_points_affine(pts, ctx, "cpu")
+    digits = F.get_digits(E.to_device_scalars(ks, ctx, "cpu"), 4,
+                          M._n_windows(ctx, 4))
+    table = M.mixed_table(P, ctx, affine)
+    assert table.shape == (64, ctx.fp.L) and table.dtype == torch.int32
+    assert M.mixed_table(P, ctx, affine, ec_kernel="round") is None
+    assert M.mixed_table(P, ctx, False) is None
+    assert not M.uses_mixed(ctx, affine, pre_reduce=1)
+    want, _ = M.bucket_accumulate(P, digits, ctx, 4, 64, affine=True)
+    got, _ = M.bucket_accumulate(P, digits, ctx, 4, 64, affine=True,
+                                 table32=table)
+    assert torch.equal(got, want)
+    for bad in (table[:-1], table.long(), table[:, :-1]):
+        with pytest.raises(ValueError, match="table32"):
+            M.bucket_accumulate(P, digits, ctx, 4, 64, affine=True,
+                                table32=bad)
 
 
 def test_msm_hybrid_matches_host():
@@ -234,7 +261,8 @@ def test_chip_smoke_phases_rehearse_on_cpu(capsys):
     chip_smoke = importlib.import_module("chip_smoke")
     from bulletproofs_tpu_torch.ops import ec_kernels as ek
 
-    records = chip_smoke.phase_kernels("cpu", 256, 5, reps=1)
+    records = chip_smoke.phase_kernels("cpu", 256, 5, reps=1,
+                                       r1cs_msm_n=64)
     assert set(records) == set(chip_smoke.REPLACES)
     assert all(r["max_abs_err"] == 0 for r in records.values())
     ek.reset_launches()
@@ -245,3 +273,70 @@ def test_chip_smoke_phases_rehearse_on_cpu(capsys):
     phases = {x["phase"]: x for x in lines}
     assert phases["msm_bitvector"]["pre_reduce"] > 0
     assert phases["msm_uniform"]["pre_reduce"] == 0
+
+
+@pytest.mark.parametrize("curve", ["bls381", "bn254"])
+def test_combine_matches_jax(curve):
+    """`bucket_rowcol`, `window_totals` and `combine_from_rowcol` (packed
+    words, kernel 3's sequential forms, their plain versions on the CPU)
+    equal the JAX package's (`bulletproofs_tpu/ops/msm.py:518-570`) limb
+    for limb from the same bucket array: W = 4 windows of c = 4, one
+    bucket in 5 the identity, the Horner over 2 sets of 2 windows."""
+    cv, jcv = config.CURVES[curve], jconfig.CURVES[curve]
+    ctx, jctx = E.CurveCtx(cv), ej.CurveCtx(jcv)
+    c, W, B = 4, 4, 16
+    rnd = random.Random(71)
+    base = [JG1.random(rnd, jcv) for _ in range(10)]
+    pts = np.asarray(ej.to_device_points([p + p for p in base], jctx))
+    pick = np.random.default_rng(71).integers(0, 10, W * B)
+    buckets = pts[:, :, pick]
+    buckets[:, :, ::5] = np.asarray(jctx.identity)[:, :, :1]
+    buckets = np.ascontiguousarray(buckets.reshape(3, -1, W, B))
+
+    @jax.jit
+    def jax_combine(bk):
+        rowsum, colsum = jmsm.bucket_rowcol(bk, jctx, c)
+        return (rowsum, colsum, jmsm.window_totals(rowsum, colsum, jctx, c),
+                jmsm.combine_from_rowcol(rowsum, colsum, jctx, c,
+                                         wins_per_set=2))
+
+    want = [np.asarray(x) for x in jax_combine(jnp.asarray(buckets))]
+    bk32 = F.pack32(E.from_jax_points(buckets, "cpu"), 1)
+    rowsum, colsum = M.bucket_rowcol(bk32, ctx, c)
+    got = [rowsum, colsum, M.window_totals(rowsum, colsum, ctx, c),
+           M.combine_from_rowcol(rowsum, colsum, ctx, c, wins_per_set=2)]
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(E.to_jax_points(F.unpack32(g, 1)), w)
+
+
+def test_msm_calls_kernel3_a_few_times(monkeypatch):
+    """`msm_hybrid` at n = 256 on the CPU calls kernel 3's wrappers (the
+    pairwise add and the sequential forms) at most 10 times: the split
+    fold, the row and column sums and the window totals; `msm_device`
+    adds the Horner.  Counted by wrapping the wrappers, since `launches`
+    counts card launches only."""
+    calls = []
+    for name in ("ec_add", "ec_gather_sum", "ec_window_totals",
+                 "ec_horner"):
+        def counted(*a, _fn=getattr(M, name), _name=name, **k):
+            calls.append(_name)
+            return _fn(*a, **k)
+        monkeypatch.setattr(M, name, counted)
+    cv = config.BLS381
+    ctx = E.CurveCtx(cv)
+    n = 256
+    pts, ks = _msm_input(n, 29, cv)
+    P, affine = E.to_device_points_affine(pts, ctx, "cpu")
+    s = E.to_device_scalars(ks, ctx, "cpu")
+    # a bit-vector input of this shape may have left a pre-reduction plan
+    M._escalation_memo.pop((n, 1, M.pick_window(n), cv.name, None), None)
+    (got,) = M.msm_hybrid(P, s[None], ctx, affine=affine)
+    assert got == bt.msm_host(pts, ks)
+    assert calls == ["ec_gather_sum"] * 2 + ["ec_window_totals"]
+    calls.clear()
+    dev = M.msm_device(P, s, ctx, M.pick_window(n), affine=affine)
+    assert E.from_device_points(dev, ctx)[0] == got
+    assert calls == ["ec_gather_sum"] * 2 + ["ec_window_totals",
+                                             "ec_horner"]
+    assert len(calls) <= 10
