@@ -1,6 +1,6 @@
 // Field and group arithmetic shared by the port's CUDA kernels
 // (ec_kernels.cu, mxu_kernels.cu): 32-bit-limb Montgomery field ops, the
-// complete RCB16 additions, and point loads and stores.  See ec_kernels.cu
+// complete RCB16 addition, and point loads and stores.  See ec_kernels.cu
 // for the representation.
 
 #pragma once
@@ -199,31 +199,6 @@ __device__ __forceinline__ void ec_add_inplace(uint32_t* X1, uint32_t* Y1,
     sub_mod<NL>(s2, t1, s1, f);           // m
     add_mod<NL>(t2, t1, s1, f);           // n
     add_tail<NL, Mul>(X1, Y1, Z1, xy, yz, xz, t0, s2, t2, f, mul);
-}
-
-// P1 += (X2, Y2, 1), complete mixed add (RCB16 algorithm 8, 11 multiplies).
-template <int NL>
-__device__ __forceinline__ void ec_madd_inplace(uint32_t* X1, uint32_t* Y1,
-                                                uint32_t* Z1,
-                                                const uint32_t* X2,
-                                                const uint32_t* Y2,
-                                                const Field<NL>& f) {
-    uint32_t t0[NL], t1[NL], xy[NL], yz[NL], xz[NL], s1[NL], s2[NL];
-    mont_mul<NL>(t0, X1, X2, f);
-    mont_mul<NL>(t1, Y1, Y2, f);
-    add_mod<NL>(s1, X1, Y1, f);
-    add_mod<NL>(s2, X2, Y2, f);
-    mont_mul<NL>(xy, s1, s2, f);
-    sub_mod<NL>(xy, xy, t0, f);
-    sub_mod<NL>(xy, xy, t1, f);
-    mont_mul<NL>(yz, Y2, Z1, f);
-    add_mod<NL>(yz, yz, Y1, f);
-    mont_mul<NL>(xz, X2, Z1, f);
-    add_mod<NL>(xz, xz, X1, f);
-    mul_small<NL>(s1, Z1, f.b3, f);       // b3*Z1
-    sub_mod<NL>(s2, t1, s1, f);           // m
-    add_mod<NL>(s1, t1, s1, f);           // n
-    add_tail<NL>(X1, Y1, Z1, xy, yz, xz, t0, s2, s1, f);
 }
 
 // NL consecutive words from a 16-byte aligned address.

@@ -26,41 +26,45 @@
 // version agree limb for limb.  Points are projective (X : Y : Z), identity
 // (0 : 1 : 0); the group law is the complete addition of Renes-Costello-
 // Batina 2016 for a = 0 curves (algorithm 7; algorithm 8 for the mixed add).
-// Points are coordinate-major (3, NL, n) words; kernel 1's point table is
-// row-major (n, 2NL): each affine point's X words, then its Y words.
+// Points are coordinate-major (3, NL, n) words; the bucket kernels' point
+// tables are row-major: kernel 1's (n, 2NL), each affine point's X words,
+// then its Y words; kernels 2 and 4's (n, 3NL), X, Y, then Z words.
 //
 // What bounds them.  Integer multiply-adds: a Montgomery product is
 // 2*NL^2 + NL 32x32->64-bit multiply-adds (300 for BLS12-381, two IMAD
 // instructions each), and an add does 11 (mixed) or 12 of them against at
 // most 144 bytes of point read, far above the card's bytes-per-operation
-// balance.  But the one-thread-per-slot form (kernels 2-4, the pairwise
-// form of kernel 3) leaves the SMs nearly empty at the MSM's shapes
-// (8448 slots give 2 warps an SM), so the latency of each thread's chain of
-// dependent instructions limits it, not the IMAD pipe.
+// balance.  But one thread per slot leaves the SMs nearly empty at the
+// MSM's shapes (8448 slots give 2 warps an SM), so the latency of each
+// thread's chain of dependent instructions limits it, not the IMAD pipe.
 //
-// Kernel 1 and the sequential forms therefore give each slot or output a
-// group of kLanes = 4 threads that share its field products
+// The bucket kernels and the sequential forms therefore give each slot or
+// output a group of kLanes = 4 threads that share its field products
 // (ec_lanes.cuh): 8448 slots make 8 warps an SM, each lane holds 3 words of
-// a BLS12-381 element instead of 12 (68 registers against 188-218), and a
-// chain of adds runs ~4x faster.  The lanes shuffle over the whole warp, so
-// the kernels keep warp-uniform control flow: an empty slot or a padded
-// column is computed with the others and dropped by a select.  On an
-// NVIDIA H100 (700 W) 4 lanes beat 1 and 2 in every kernel, and with masks
-// of single groups 1 lane had beaten 4 (PERF.md section 6).
-// Kernel 1 gathers its rows itself from the packed point table, which stays
-// in the 50 MB L2 (6.3 MB at n = 2^16), by the slot grid's point ids, so no
-// (R_c*S, 2NL) row tensor is built per launch.  The sequential forms move
-// the combine's Python loops of batched adds into one launch each: one
-// group owns one output and runs its chain of adds in registers, in the
-// Python loop's order, so the words match.  They run a few dozen to a few
-// thousand groups: latency-bound by design.
+// a BLS12-381 element instead of 12 (68 registers against 188-218 for
+// kernel 1), and a chain of adds runs ~4x faster.  The lanes shuffle over
+// the whole warp, so the kernels keep warp-uniform control flow: an empty
+// slot or a padded column is computed with the others and dropped by a
+// select, or (kernels 2 and 4) adds the identity row.  On an NVIDIA H100
+// (700 W) 4 lanes beat 1 and 2 in every kernel, and with masks of single
+// groups 1 lane had beaten 4 (PERF.md section 6).  Only pairwise kernel 3
+// keeps one thread a point.
+// The bucket kernels gather their rows themselves from the packed point
+// table by the slot grid's point ids, so no (R_c*S, 2NL or 3NL) row tensor
+// is built per launch.  The table stays in the 50 MB L2 (6.3 MB at
+// n = 2^16 affine, 18.9 MB for the IPA's 131074 projective rows); a
+// pre-reduced one (W*n rows, 311 MB at n = 2^16) does not.  The sequential
+// forms move the combine's Python loops of batched adds into one launch
+// each: one group owns one output and runs its chain of adds in
+// registers, in the Python loop's order, so the words match.  They run a
+// few dozen to a few thousand groups: latency-bound by design.
 
 #include "ec_common.cuh"
 #include "ec_lanes.cuh"
 
 namespace {
 
-constexpr int kSlotBlock = 32 * kLanes;     // threads a block of kernel 1
+constexpr int kSlotBlock = 32 * kLanes;     // of kernels 1, 2 and 4
 constexpr int kSumBlock = 64;               // of the sequential forms
 
 // The group of kLanes lanes this thread belongs to, counted over the grid.
@@ -111,66 +115,87 @@ bucket_rounds_mixed_kernel(uint32_t* out, const uint32_t* acc,
     if (mine) store_point_l<NL>(out, S, s, X, Y, Z, ln.j);
 }
 
-// acc (3, NL, S) in/out; rows (R_c*S, 3NL) projective, round-major; found
-// (R_c, S).  Empty slots add the identity (0 : 1 : 0), as the TPU kernel
-// does, which rescales the accumulator's representative.
+// One round of RCB16 algorithm 7 for a group of kernel 2 or 4: the
+// accumulator (X : Y : Z) adds row `id` of the projective table (n, 3NL),
+// each point's X, Y, then Z words, where `live`, else the identity
+// (0 : 1 : 0), as the TPU kernels do; algorithm 7 turns the identity into
+// (X*Y : Y*Y : Z*Y), exactly, which rescales the representative.  A warp
+// with a live slot runs the whole add for each of its groups, the empty
+// ones on the identity row; a warp whose slots are all empty runs only
+// those 3 products.  Either way the words are the plain version's.
 template <int NL>
-__global__ void __launch_bounds__(kThreads)
-bucket_rounds_proj_kernel(uint32_t* acc, const uint32_t* rows,
-                          const int32_t* found, int S, int R_c,
-                          Field<NL> f) {
-    const int s = blockIdx.x * blockDim.x + threadIdx.x;
-    if (s >= S) return;
-    uint32_t X[NL], Y[NL], Z[NL], x2[NL], y2[NL], z2[NL];
-    load_point<NL>(X, Y, Z, acc, S, s);
-    for (int r = 0; r < R_c; r++) {
-        const size_t slot = (size_t)r * S + s;
-        if (found[slot] != 0) {
-            const uint32_t* row = rows + slot * (3 * NL);
-            load_words<NL>(x2, row);
-            load_words<NL>(y2, row + NL);
-            load_words<NL>(z2, row + 2 * NL);
-        } else {
+__device__ __forceinline__ void proj_round_l(uint32_t* X, uint32_t* Y,
+                                             uint32_t* Z,
+                                             const uint32_t* table, int id,
+                                             bool live, const FieldL<NL>& fl,
+                                             const Lanes& ln) {
+    constexpr int K = NL / kLanes;
+    if (warp_needs(live)) {
+        uint32_t x2[K], y2[K], z2[K];
+        const uint32_t* row = table + (size_t)(live ? id : 0) * (3 * NL)
+                              + ln.j * K;
 #pragma unroll
-            for (int k = 0; k < NL; k++) {
-                x2[k] = 0;
-                y2[k] = f.one[k];
-                z2[k] = 0;
-            }
+        for (int k = 0; k < K; k++) {
+            x2[k] = live ? row[k] : 0u;
+            y2[k] = live ? row[NL + k] : fl.one[k];
+            z2[k] = live ? row[2 * NL + k] : 0u;
         }
-        ec_add_inplace<NL>(X, Y, Z, x2, y2, z2, f);
+        ec_add_l<NL>(X, Y, Z, x2, y2, z2, fl, ln);
+    } else {
+        uint32_t y[K];
+#pragma unroll
+        for (int k = 0; k < K; k++) y[k] = Y[k];
+        mont_mul_l<NL>(X, X, y, fl, ln);
+        mont_mul_l<NL>(Z, Z, y, fl, ln);
+        mont_mul_l<NL>(Y, y, y, fl, ln);
     }
-    store_point<NL>(acc, S, s, X, Y, Z);
 }
 
-// One bucket round (the per-round form of the bucket pass): acc (3, NL, S)
-// in/out, rows (S, 3NL) projective, found (S,).  Every slot adds its row,
-// or the identity (0 : 1 : 0) where found is 0, as the TPU kernel does.  One
-// thread per slot; the same 12-multiply complete add as the chunked kernel,
-// but one launch, one accumulator load and one store per round.
+// out, acc (3, NL, S); table (n, 3NL) projective rows; ids, found (R_c, S),
+// round-major.  A group of kLanes lanes per slot loops over the R_c rounds
+// with its accumulator in registers, adding row ids[r, s] of the table or
+// the identity where found[r, s] is 0 (`proj_round_l`).  out may alias acc.
 template <int NL>
-__global__ void __launch_bounds__(kThreads)
-bucket_round_add_kernel(uint32_t* acc, const uint32_t* rows,
-                        const int32_t* found, int S, Field<NL> f) {
-    const int s = blockIdx.x * blockDim.x + threadIdx.x;
-    if (s >= S) return;
-    uint32_t X[NL], Y[NL], Z[NL], x2[NL], y2[NL], z2[NL];
-    load_point<NL>(X, Y, Z, acc, S, s);
-    if (found[s] != 0) {
-        const uint32_t* row = rows + (size_t)s * (3 * NL);
-        load_words<NL>(x2, row);
-        load_words<NL>(y2, row + NL);
-        load_words<NL>(z2, row + 2 * NL);
-    } else {
-#pragma unroll
-        for (int k = 0; k < NL; k++) {
-            x2[k] = 0;
-            y2[k] = f.one[k];
-            z2[k] = 0;
-        }
+__global__ void __launch_bounds__(kSlotBlock)
+bucket_rounds_proj_kernel(uint32_t* out, const uint32_t* acc,
+                          const uint32_t* table, const int32_t* ids,
+                          const int32_t* found, int S, int R_c,
+                          Field<NL> f) {
+    constexpr int K = NL / kLanes;
+    const Lanes ln;
+    bool mine;
+    const long long s = group_index(S, mine);
+    const FieldL<NL> fl(f, ln.j);
+    uint32_t X[K], Y[K], Z[K];
+    load_point_l<NL>(X, Y, Z, acc, S, s, ln.j);
+    for (int r = 0; r < R_c; r++) {
+        const size_t slot = (size_t)r * S + s;
+        const bool live = mine && found[slot] != 0;
+        proj_round_l<NL>(X, Y, Z, table, live ? ids[slot] : 0, live, fl,
+                         ln);
     }
-    ec_add_inplace<NL>(X, Y, Z, x2, y2, z2, f);
-    store_point<NL>(acc, S, s, X, Y, Z);
+    if (mine) store_point_l<NL>(out, S, s, X, Y, Z, ln.j);
+}
+
+// One bucket round (the per-round form of the bucket pass): out, acc
+// (3, NL, S); table (n, 3NL); ids, found (S,).  Kernel 2's round, one
+// launch, one accumulator load and one store per round.  out may alias
+// acc.
+template <int NL>
+__global__ void __launch_bounds__(kSlotBlock)
+bucket_round_add_kernel(uint32_t* out, const uint32_t* acc,
+                        const uint32_t* table, const int32_t* ids,
+                        const int32_t* found, int S, Field<NL> f) {
+    constexpr int K = NL / kLanes;
+    const Lanes ln;
+    bool mine;
+    const long long s = group_index(S, mine);
+    const FieldL<NL> fl(f, ln.j);
+    uint32_t X[K], Y[K], Z[K];
+    load_point_l<NL>(X, Y, Z, acc, S, s, ln.j);
+    const bool live = mine && found[s] != 0;
+    proj_round_l<NL>(X, Y, Z, table, live ? ids[s] : 0, live, fl, ln);
+    if (mine) store_point_l<NL>(out, S, s, X, Y, Z, ln.j);
 }
 
 // out = P + Q elementwise over n points, all (3, NL, n); ragged n is masked.
@@ -336,19 +361,25 @@ int bp_bucket_rounds_mixed(void* out, const void* acc, const void* table,
     return (int)cudaGetLastError();
 }
 
-int bp_bucket_rounds_proj(void* acc, const void* rows, const void* found,
-                          int S, int R_c, int nl, const void* consts,
+int bp_bucket_rounds_proj(void* out, const void* acc, const void* table,
+                          const void* ids, const void* found, int S,
+                          int R_c, int nl, const void* consts,
                           void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const uint32_t* c = static_cast<const uint32_t*>(consts);
     if (S <= 0 || R_c <= 0) return (int)cudaErrorInvalidValue;
+    const unsigned grid = groups_grid(S, kSlotBlock);
     if (nl == 12) {
-        bucket_rounds_proj_kernel<12><<<grid_for(S), kThreads, 0, st>>>(
-            static_cast<uint32_t*>(acc), static_cast<const uint32_t*>(rows),
+        bucket_rounds_proj_kernel<12><<<grid, kSlotBlock, 0, st>>>(
+            static_cast<uint32_t*>(out), static_cast<const uint32_t*>(acc),
+            static_cast<const uint32_t*>(table),
+            static_cast<const int32_t*>(ids),
             static_cast<const int32_t*>(found), S, R_c, make_field<12>(c));
     } else if (nl == 8) {
-        bucket_rounds_proj_kernel<8><<<grid_for(S), kThreads, 0, st>>>(
-            static_cast<uint32_t*>(acc), static_cast<const uint32_t*>(rows),
+        bucket_rounds_proj_kernel<8><<<grid, kSlotBlock, 0, st>>>(
+            static_cast<uint32_t*>(out), static_cast<const uint32_t*>(acc),
+            static_cast<const uint32_t*>(table),
+            static_cast<const int32_t*>(ids),
             static_cast<const int32_t*>(found), S, R_c, make_field<8>(c));
     } else {
         return (int)cudaErrorInvalidValue;
@@ -375,18 +406,24 @@ int bp_ec_add(void* out, const void* P, const void* Q, long long n, int nl,
     return (int)cudaGetLastError();
 }
 
-int bp_bucket_round_add(void* acc, const void* rows, const void* found,
-                        int S, int nl, const void* consts, void* stream) {
+int bp_bucket_round_add(void* out, const void* acc, const void* table,
+                        const void* ids, const void* found, int S, int nl,
+                        const void* consts, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const uint32_t* c = static_cast<const uint32_t*>(consts);
     if (S <= 0) return (int)cudaErrorInvalidValue;
+    const unsigned grid = groups_grid(S, kSlotBlock);
     if (nl == 12) {
-        bucket_round_add_kernel<12><<<grid_for(S), kThreads, 0, st>>>(
-            static_cast<uint32_t*>(acc), static_cast<const uint32_t*>(rows),
+        bucket_round_add_kernel<12><<<grid, kSlotBlock, 0, st>>>(
+            static_cast<uint32_t*>(out), static_cast<const uint32_t*>(acc),
+            static_cast<const uint32_t*>(table),
+            static_cast<const int32_t*>(ids),
             static_cast<const int32_t*>(found), S, make_field<12>(c));
     } else if (nl == 8) {
-        bucket_round_add_kernel<8><<<grid_for(S), kThreads, 0, st>>>(
-            static_cast<uint32_t*>(acc), static_cast<const uint32_t*>(rows),
+        bucket_round_add_kernel<8><<<grid, kSlotBlock, 0, st>>>(
+            static_cast<uint32_t*>(out), static_cast<const uint32_t*>(acc),
+            static_cast<const uint32_t*>(table),
+            static_cast<const int32_t*>(ids),
             static_cast<const int32_t*>(found), S, make_field<8>(c));
     } else {
         return (int)cudaErrorInvalidValue;

@@ -37,9 +37,9 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SOURCES = {
     CSRC / "ec_kernels.cu": {
         "bp_bucket_rounds_mixed": (_P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
-        "bp_bucket_rounds_proj": (_P, _P, _P, _I, _I, _I, _P, _P),
+        "bp_bucket_rounds_proj": (_P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
         "bp_ec_add": (_P, _P, _P, _LL, _I, _P, _P),
-        "bp_bucket_round_add": (_P, _P, _P, _I, _I, _P, _P),
+        "bp_bucket_round_add": (_P, _P, _P, _P, _P, _I, _I, _P, _P),
         "bp_ec_gather_sum": (_P, _P, _P, _I, _I, _LL, _I, _I, _P, _P),
         "bp_ec_window_totals": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
         "bp_ec_horner": (_P, _P, _I, _I, _I, _I, _P, _P),

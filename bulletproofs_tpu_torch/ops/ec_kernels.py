@@ -23,12 +23,14 @@ races it against kernel 4.
 
 Forms of the operands.  Points are the port's int64 16-bit limb tensors
 (3, L, ...) or PACKED 32-bit words (3, NL, ...) int32, NL = L/2, the
-kernels' own form (`field.pack32`).  Kernel 1 and kernel 3's sequential
-forms take packed points only, and kernel 1 gathers its rows from a packed
-affine point table (`affine_rows32`), so the MSM packs its table once and
-keeps its buckets packed to the end of the combine.  `ec_add` and the
-accumulators of kernels 2 and 4 take either form and return the one they
-were given; kernel 5's wrapper takes limb tensors.
+kernels' own form (`field.pack32`).  The bucket kernels 1, 2 and 4 and
+kernel 3's sequential forms take packed points only.  The bucket kernels
+gather their rows by point id from a packed point table, affine (n, 2NL)
+for kernel 1 (`affine_rows32`), projective (n, 3NL) for kernels 2 and 4
+(`proj_rows32`), so the MSM packs its table once and keeps its buckets
+packed to the end of the combine.  `ec_add` takes either form and returns
+the one it was given; kernel 5's wrapper takes limb tensors and gathered
+rows.
 
 For a tensor on the CPU a wrapper runs the plain version; for a CUDA
 tensor it launches the kernel on PyTorch's current stream, or raises.
@@ -125,23 +127,8 @@ def _require_contiguous(name, *tensors):
         raise ValueError(f"{name}: CUDA operands must be contiguous")
 
 
-def _check_rounds(buckets, rows, found, width, ctx):
-    """-> whether the accumulators are packed."""
-    packed = _is_packed(buckets, ctx, "bucket rounds")
-    if buckets.ndim != 3:
-        raise ValueError(f"buckets must be (3, L or NL, S), got "
-                         f"{tuple(buckets.shape)}")
-    S = buckets.shape[2]
-    R_c = found.shape[0]
-    if found.shape != (R_c, S) or rows.shape != (R_c * S, width * ctx.fp.L):
-        raise ValueError(f"rows {tuple(rows.shape)} / found "
-                         f"{tuple(found.shape)} do not fit S = {S}")
-    _same_device("bucket rounds", buckets, rows, found)
-    return packed
-
-
 def _check_round(buckets, rows, found, ctx):
-    """-> whether the accumulators are packed."""
+    """Kernel 5's operands -> whether the accumulators are packed."""
     packed = _is_packed(buckets, ctx, "bucket round")
     if buckets.ndim != 3:
         raise ValueError(f"buckets must be (3, L or NL, S), got "
@@ -155,8 +142,8 @@ def _check_round(buckets, rows, found, ctx):
 
 
 def pack_rounds(buckets, rows, found):
-    """The bucket-round kernels' operands in their own layout: 32-bit
-    words (`pack32`), contiguous, and `found` as int32."""
+    """Kernel 5's operands in its own layout: 32-bit words (`pack32`),
+    contiguous, and `found` as int32."""
     return (pack32(buckets, 1).contiguous(), pack32(rows, 1).contiguous(),
             found.to(torch.int32).contiguous())
 
@@ -166,6 +153,57 @@ def affine_rows32(points):
     (n, 2NL) int32: row i holds point i's X words, then its Y words."""
     n = points.shape[2]
     return pack32(points[:2], 1).permute(2, 0, 1).reshape(n, -1).contiguous()
+
+
+def proj_rows32(points):
+    """Points (3, L, n) int64 or packed (3, NL, n) int32 -> kernels 2 and
+    4's point table (n, 3NL) int32: row i holds point i's X, Y, then Z
+    words."""
+    if points.dtype != torch.int32:
+        points = pack32(points, 1)
+    n = points.shape[2]
+    return points.permute(2, 0, 1).reshape(n, -1).contiguous()
+
+
+def _check_buckets(name, acc32, table32, ids, found, ctx, width,
+                   rounds=True):
+    """The bucket kernels' operands: packed accumulators (3, NL, S); ids
+    and found int32, (R_c, S) for kernels 1 and 2 (`rounds`), (S,) for
+    kernel 4; a packed (rows, width*NL) int32 table; all on one device.
+    The ids are not held against the table's rows: the kernels read by id
+    without bounds, and a check on the card would wait for it."""
+    _require_packed(acc32, ctx, name, ndim=3)
+    S = acc32.shape[2]
+    if (found.ndim != (2 if rounds else 1) or found.shape[-1] != S
+            or ids.shape != found.shape
+            or found.dtype != torch.int32 or ids.dtype != torch.int32):
+        raise ValueError(f"{name}: ids {tuple(ids.shape)} {ids.dtype} / "
+                         f"found {tuple(found.shape)} {found.dtype} must be "
+                         f"{'(R_c, S)' if rounds else '(S,)'} int32, "
+                         f"S = {S}")
+    words = width * ctx.fp.L // 2
+    if table32.dtype != torch.int32 or table32.ndim != 2 \
+            or table32.shape[1] != words:
+        raise ValueError(f"{name}: table must be (rows, {words}) int32, "
+                         f"got {tuple(table32.shape)} {table32.dtype}")
+    _same_device(name, acc32, table32, ids, found)
+
+
+def _run_buckets(name, plain, bare, acc32, table32, ids, found, ctx):
+    """A bucket kernel's wrapper after its checks: the plain version for
+    CPU tensors, else one launch into a new accumulator tensor."""
+    if not _on_card(acc32, name, ctx):
+        return plain(acc32, table32, ids, found, ctx)
+    _require_contiguous(name, acc32, table32, ids, found)
+    out = torch.empty_like(acc32)
+    bare(out, acc32, table32, ids, found, ctx)
+    return out
+
+
+def _gather_rows(table32, ids, found):
+    """Rows table32[ids] as 16-bit limbs (..., 2 * words) int64; an empty
+    slot's id (found 0) is not read, row 0 stands in."""
+    return unpack32(table32[torch.where(found != 0, ids, 0).long()], -1)
 
 
 def packed_identity(ctx: CurveCtx, shape, device):
@@ -190,23 +228,27 @@ def bucket_rounds_mixed32(out32, acc32, table32, ids, found, ctx: CurveCtx):
             _consts(ctx).ctypes.data)
 
 
-def bucket_rounds_proj32(acc32, rows32, found32, ctx: CurveCtx):
-    """Kernel 2 on operands already packed by `pack_rounds`: acc32
-    (3, NL, S) is updated in place by R_c rounds."""
-    _require_card("bucket_rounds_proj", ctx, acc32, rows32, found32)
-    R_c, S = found32.shape
-    _launch("bp_bucket_rounds_proj", "bucket_rounds_proj", acc32.data_ptr(),
-            rows32.data_ptr(), found32.data_ptr(), S, R_c, ctx.fp.L // 2,
+def bucket_rounds_proj32(out32, acc32, table32, ids, found, ctx: CurveCtx):
+    """Kernel 2 on packed CUDA operands, unchecked: writes `out32`
+    (3, NL, S), which may be `acc32` itself."""
+    _require_card("bucket_rounds_proj", ctx, out32, acc32, table32, ids,
+                  found)
+    R_c, S = found.shape
+    _launch("bp_bucket_rounds_proj", "bucket_rounds_proj",
+            out32.data_ptr(), acc32.data_ptr(), table32.data_ptr(),
+            ids.data_ptr(), found.data_ptr(), S, R_c, ctx.fp.L // 2,
             _consts(ctx).ctypes.data)
 
 
-def bucket_round_add32(acc32, rows32, found32, ctx: CurveCtx):
-    """Kernel 4 on operands already packed by `pack_rounds`: acc32
-    (3, NL, S) is updated in place by one round."""
-    _require_card("bucket_round_add", ctx, acc32, rows32, found32)
-    _launch("bp_bucket_round_add", "bucket_round_add", acc32.data_ptr(),
-            rows32.data_ptr(), found32.data_ptr(), found32.shape[0],
-            ctx.fp.L // 2, _consts(ctx).ctypes.data)
+def bucket_round_add32(out32, acc32, table32, ids, found, ctx: CurveCtx):
+    """Kernel 4 on packed CUDA operands, unchecked: writes `out32`
+    (3, NL, S), which may be `acc32` itself."""
+    _require_card("bucket_round_add", ctx, out32, acc32, table32, ids,
+                  found)
+    _launch("bp_bucket_round_add", "bucket_round_add", out32.data_ptr(),
+            acc32.data_ptr(), table32.data_ptr(), ids.data_ptr(),
+            found.data_ptr(), found.shape[0], ctx.fp.L // 2,
+            _consts(ctx).ctypes.data)
 
 
 def ec_add32(P32, Q32, ctx: CurveCtx):
@@ -277,61 +319,46 @@ def bucket_rounds_mixed(acc32, table32, ids, found, ctx: CurveCtx):
     after R_c rounds; see `bucket_rounds_mixed_plain` for the function and
     the operands (ids and found int32, all on one device)."""
     name = "bucket_rounds_mixed"
-    _require_packed(acc32, ctx, name, ndim=3)
-    S = acc32.shape[2]
-    R_c = found.shape[0]
-    if (found.shape != (R_c, S) or ids.shape != (R_c, S)
-            or found.dtype != torch.int32 or ids.dtype != torch.int32):
-        raise ValueError(f"{name}: ids {tuple(ids.shape)} {ids.dtype} / "
-                         f"found {tuple(found.shape)} {found.dtype} must be "
-                         f"({R_c}, {S}) int32")
-    if table32.dtype != torch.int32 or table32.ndim != 2 \
-            or table32.shape[1] != ctx.fp.L:
-        raise ValueError(f"{name}: table must be (n, {ctx.fp.L}) int32, got "
-                         f"{tuple(table32.shape)} {table32.dtype}")
-    _same_device(name, acc32, table32, ids, found)
-    if not _on_card(acc32, name, ctx):
-        return bucket_rounds_mixed_plain(acc32, table32, ids, found, ctx)
-    _require_contiguous(name, acc32, table32, ids, found)
-    out = torch.empty_like(acc32)
-    bucket_rounds_mixed32(out, acc32, table32, ids, found, ctx)
-    return out
+    _check_buckets(name, acc32, table32, ids, found, ctx, 2)
+    return _run_buckets(name, bucket_rounds_mixed_plain,
+                        bucket_rounds_mixed32, acc32, table32, ids, found,
+                        ctx)
 
 
 # ---------------------------------------------------------------------------
-# Kernel 2: R_c bucket rounds, projective rows, complete add
+# Kernel 2: R_c bucket rounds, projective rows gathered from a packed table,
+# complete add
 # ---------------------------------------------------------------------------
 
-def bucket_rounds_proj_plain(buckets, rows, found, ctx: CurveCtx):
-    """buckets (3, L, S); rows (R_c*S, 3L) projective rows, round-major;
-    found (R_c, S) -> buckets after R_c rounds of the complete add (RCB16
-    algorithm 7).  Empty slots add the identity (0 : 1 : 0)."""
+def bucket_rounds_proj_plain(acc32, table32, ids, found, ctx: CurveCtx):
+    """acc32 (3, NL, S) packed Montgomery accumulators; table32 (n, 3NL)
+    packed projective rows (`proj_rows32`, or the MSM's pre-reduced
+    table); ids, found (R_c, S): the point added to slot s in round r (an
+    id < n wherever found is set; not checked on the card) and whether
+    one is -> the accumulators after R_c rounds of the complete add (RCB16
+    algorithm 7), packed.  Empty slots add the identity (0 : 1 : 0), as
+    the TPU kernel does (their ids are not read)."""
     L = ctx.fp.L
-    S = buckets.shape[2]
-    ident = ctx.identity_like((1,), buckets.device)
-    acc = buckets
+    S = acc32.shape[2]
+    rows = _gather_rows(table32, ids, found)        # (R_c, S, 3L)
+    ident = ctx.identity_like((1,), acc32.device)
+    acc = unpack32(acc32, 1)
     for r in range(found.shape[0]):
-        delta = rows[r * S:(r + 1) * S].reshape(S, 3, L).permute(1, 2, 0)
+        delta = rows[r].reshape(S, 3, L).permute(1, 2, 0)
         delta = torch.where((found[r] != 0)[None, None], delta, ident)
         acc = ec_add_plain(acc, delta, ctx)
-    return acc
+    return pack32(acc, 1)
 
 
-def bucket_rounds_proj(buckets, rows, found, ctx: CurveCtx):
-    """Kernel 2 (`bp_bucket_rounds_proj`); see `bucket_rounds_proj_plain`.
-    The accumulators are limb tensors or packed; the result is in the same
-    form, the rows are limb tensors."""
-    packed = _check_rounds(buckets, rows, found, 3, ctx)
-    if not _on_card(buckets, "bucket_rounds_proj", ctx):
-        if packed:
-            return pack32(bucket_rounds_proj_plain(
-                unpack32(buckets, 1), rows, found, ctx), 1)
-        return bucket_rounds_proj_plain(buckets, rows, found, ctx)
-    acc32 = buckets.clone() if packed else pack32(buckets, 1).contiguous()
-    rows32 = pack32(rows, 1).contiguous()
-    found32 = found.to(torch.int32).contiguous()
-    bucket_rounds_proj32(acc32, rows32, found32, ctx)
-    return acc32 if packed else unpack32(acc32, 1)
+def bucket_rounds_proj(acc32, table32, ids, found, ctx: CurveCtx):
+    """Kernel 2 (`bp_bucket_rounds_proj`): the new accumulators (3, NL, S)
+    after R_c rounds; see `bucket_rounds_proj_plain` for the function and
+    the operands (ids and found int32, all on one device)."""
+    name = "bucket_rounds_proj"
+    _check_buckets(name, acc32, table32, ids, found, ctx, 3)
+    return _run_buckets(name, bucket_rounds_proj_plain,
+                        bucket_rounds_proj32, acc32, table32, ids, found,
+                        ctx)
 
 
 # ---------------------------------------------------------------------------
@@ -485,11 +512,11 @@ def ec_horner(totals32, wps, c, ctx: CurveCtx):
 
 
 # ---------------------------------------------------------------------------
-# Kernel 4: one bucket round, projective rows, complete add
+# Kernel 4: one bucket round, projective rows gathered from a packed table,
+# complete add
 # ---------------------------------------------------------------------------
 
-def bucket_round_add_plain(buckets, rows, found, ctx: CurveCtx,
-                           mul=mont_mul):
+def _round_add_rows(buckets, rows, found, ctx: CurveCtx, mul=mont_mul):
     """buckets (3, L, S); rows (S, 3L) projective; found (S,) -> buckets
     after one round of the complete add (RCB16 algorithm 7): every slot
     adds its row, or the identity (0 : 1 : 0) where found is 0 -- the
@@ -512,21 +539,25 @@ def bucket_round_add_plain(buckets, rows, found, ctx: CurveCtx,
     return out
 
 
-def bucket_round_add(buckets, rows, found, ctx: CurveCtx):
-    """Kernel 4 (`bp_bucket_round_add`); see `bucket_round_add_plain`.  The
-    accumulators are limb tensors or packed; the result is in the same
-    form, the rows are limb tensors."""
-    packed = _check_round(buckets, rows, found, ctx)
-    if not _on_card(buckets, "bucket_round_add", ctx):
-        if packed:
-            return pack32(bucket_round_add_plain(
-                unpack32(buckets, 1), rows, found, ctx), 1)
-        return bucket_round_add_plain(buckets, rows, found, ctx)
-    acc32 = buckets.clone() if packed else pack32(buckets, 1).contiguous()
-    rows32 = pack32(rows, 1).contiguous()
-    found32 = found.to(torch.int32).contiguous()
-    bucket_round_add32(acc32, rows32, found32, ctx)
-    return acc32 if packed else unpack32(acc32, 1)
+def bucket_round_add_plain(acc32, table32, ids, found, ctx: CurveCtx):
+    """acc32 (3, NL, S) packed accumulators; table32 (n, 3NL) packed
+    projective rows (`proj_rows32`); ids, found (S,) -> the accumulators
+    after one round, packed: slot s adds point ids[s] (an id < n where
+    found is set; not checked on the card), or the identity where found is
+    0 (its id is not read); see `_round_add_rows` for the function."""
+    return pack32(_round_add_rows(unpack32(acc32, 1),
+                                  _gather_rows(table32, ids, found), found,
+                                  ctx), 1)
+
+
+def bucket_round_add(acc32, table32, ids, found, ctx: CurveCtx):
+    """Kernel 4 (`bp_bucket_round_add`): the new accumulators (3, NL, S)
+    after one round; see `bucket_round_add_plain` for the function and the
+    operands (ids and found int32, all on one device)."""
+    name = "bucket_round_add"
+    _check_buckets(name, acc32, table32, ids, found, ctx, 3, rounds=False)
+    return _run_buckets(name, bucket_round_add_plain, bucket_round_add32,
+                        acc32, table32, ids, found, ctx)
 
 
 # ---------------------------------------------------------------------------
@@ -558,12 +589,12 @@ def _mxu_tables_on(ctx: CurveCtx, device):
 
 
 def bucket_round_add_mxu_plain(buckets, rows, found, ctx: CurveCtx):
-    """`bucket_round_add_plain` with every Montgomery product through
+    """Kernel 4's round on limb buckets (3, L, S) and gathered rows
+    (S, 3L) (`_round_add_rows`) with every Montgomery product through
     `field.mont_mul_mxu` (separated REDC, the fixed-operand halves as
     Toeplitz products in int64): the same limbs, the function of
     `ec_pallas._round_kernel_mxu`."""
-    return bucket_round_add_plain(buckets, rows, found, ctx,
-                                  mul=mont_mul_mxu)
+    return _round_add_rows(buckets, rows, found, ctx, mul=mont_mul_mxu)
 
 
 def bucket_round_add_mxu32(acc32, rows32, found32, ctx: CurveCtx):

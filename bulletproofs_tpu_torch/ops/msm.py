@@ -9,10 +9,11 @@ CUDA kernels of `ops/ec_kernels.py`.
    (window, bucket) slots.  Rounds = max bucket occupancy.  Skewed windows
    are spread over sub-buckets and duplicate rows (`window_plan`).
 3. **Bucket rounds**: R_c rounds per kernel launch, accumulators resident in
-   registers (`bucket_rounds_mixed` for affine tables, which gathers its
-   rows by point id from the table packed once per MSM;
-   `bucket_rounds_proj` after pre-reduction passes), or, with
-   `ec_kernel="round"`, one launch of `bucket_round_add` per round.
+   registers (`bucket_rounds_mixed` for affine tables, `bucket_rounds_proj`
+   for projective ones and after pre-reduction passes), or, with
+   `ec_kernel="round"`, one launch of `bucket_round_add` per round.  Each
+   gathers its rows by point id from a table packed once per MSM
+   (`point_table`, or the pre-reduced table).
 4. **Combine**: sub-bucket and duplicate-row folds and the two-level
    row/column sums (`ec_gather_sum`), then the weighted running sums
    (`ec_window_totals`): kernel 3's sequential forms, one launch each, give
@@ -44,8 +45,8 @@ from .ec_host import G1
 from .ec_kernels import (affine_rows32, bucket_round_add,
                          bucket_rounds_mixed, bucket_rounds_proj, ec_add,
                          ec_gather_sum, ec_horner, ec_window_totals,
-                         packed_identity)
-from .field import unpack32
+                         packed_identity, proj_rows32)
+from .field import pack32, unpack32
 
 # Rounds per bucket-kernel launch (the JAX package's BP_EC_CHUNK default).
 EC_CHUNK = 16
@@ -327,24 +328,25 @@ def _spread_dup_rows(digits, dup_plan):
 
 def _pre_reduce_rows(points, sorted_d, rank, perm, ctx, pre_reduce):
     """`pre_reduce` passes of pairwise same-bucket merging over the digit-
-    sorted point table: pass p adds the entry 2^p places on into every
-    entry whose rank is a multiple of 2^(p+1), so a bucket's occupancy
-    halves per pass.  Returns the merged per-window tables as (W*n, 3L)
-    rows (row w*n + i is sorted position i of window w)."""
+    sorted point table, on packed words: pass p adds the entry 2^p places
+    on into every entry whose rank is a multiple of 2^(p+1), so a bucket's
+    occupancy halves per pass.  Returns the merged per-window tables as
+    kernel 2's packed table (W*n, 3NL) int32 (row w*n + i is sorted
+    position i of window w)."""
     W, n = sorted_d.shape
-    L = points.shape[1]
-    P = points[:, :, perm]                           # (3, L, W, n)
-    ident = ctx.identity_like((W, 1), points.device)
+    P = pack32(points, 1)[:, :, perm]                # (3, NL, W, n)
+    nl = P.shape[1]
+    ident = packed_identity(ctx, (W, 1), points.device)
     for p in range(pre_reduce):
         shift = 1 << p
         d_next = torch.cat([sorted_d[:, shift:],
                             torch.full_like(sorted_d[:, :shift], -1)], dim=1)
-        P_next = torch.cat([P[..., shift:], ident.expand(3, L, W, shift)],
+        P_next = torch.cat([P[..., shift:], ident.expand(3, nl, W, shift)],
                            dim=-1)
         mergeable = ((rank & ((2 << p) - 1)) == 0) & \
             (d_next == sorted_d) & (sorted_d != 0)
         P = torch.where(mergeable[None, None], ec_add(P, P_next, ctx), P)
-    return P.permute(2, 3, 0, 1).reshape(W * n, 3 * L)
+    return proj_rows32(P.reshape(3, nl, W * n))
 
 
 def uses_mixed(ctx: CurveCtx, affine, pre_reduce=0, ec_kernel="chunk"):
@@ -356,13 +358,14 @@ def uses_mixed(ctx: CurveCtx, affine, pre_reduce=0, ec_kernel="chunk"):
             and ec_kernel == "chunk")
 
 
-def mixed_table(points, ctx: CurveCtx, affine, ec_kernel="chunk"):
-    """Kernel 1's packed table of `points` ((n, 2NL) int32,
-    `affine_rows32`) when a bucket pass without pre-reduction runs kernel
-    1 (`uses_mixed`), else None."""
+def point_table(points, ctx: CurveCtx, affine, ec_kernel="chunk"):
+    """The packed table a bucket pass without pre-reduction reads its rows
+    from: kernel 1's affine (n, 2NL) (`affine_rows32`) where the pass runs
+    kernel 1 (`uses_mixed`), else kernels 2 and 4's projective (n, 3NL)
+    (`proj_rows32`)."""
     if uses_mixed(ctx, affine, 0, ec_kernel):
         return affine_rows32(points)
-    return None
+    return proj_rows32(points)
 
 
 def bucket_accumulate(points, digits, ctx: CurveCtx, c: int, n_rounds,
@@ -378,12 +381,13 @@ def bucket_accumulate(points, digits, ctx: CurveCtx, c: int, n_rounds,
 
     plan: (ranges, splits[, dup_plan]) from `window_plan`.
     pre_reduce: halving passes (`_pre_reduce_rows`) that tame degenerate
-    scalar distributions such as bit vectors, at W*n batched adds a pass.
+    scalar distributions such as bit vectors, at W*n batched adds a pass;
+    the rounds then read the pre-reduced table.
     affine: the table has Z == 1 everywhere, so without pre-reduction the
-    chunked rounds use the mixed-add kernel (`uses_mixed`), which reads the
-    table packed (`table32`, (n, 2NL) int32 from `mixed_table`, on the
-    points' device; made here when not given) by the slot grid's point
-    ids.
+    chunked rounds use the mixed-add kernel (`uses_mixed`).
+    table32: the packed table of `points` that the rounds read by the slot
+    grid's point ids without pre-reduction (`point_table`, on the points'
+    device; made here when not given); unused after pre-reduction.
     ec_kernel: "chunk" runs EC_CHUNK rounds per launch of kernel 1 or 2;
     "round" runs one launch of kernel 4 (`bucket_round_add`) per round on
     projective rows, affine table or not, as the JAX package's per-round
@@ -406,16 +410,16 @@ def bucket_accumulate(points, digits, ctx: CurveCtx, c: int, n_rounds,
         digits = _spread_dup_rows(digits, dup_plan)
     W = digits.shape[0]
 
-    if table32 is not None and (tuple(table32.shape) != (n, L)
-                                or table32.dtype != torch.int32
-                                or table32.device != dev):
-        # the kernel reads rows by id without bounds: a short table would
-        # be read past its end
-        raise ValueError(f"table32 must be ({n}, {L}) int32 on {dev}, got "
-                         f"{tuple(table32.shape)} {table32.dtype} on "
-                         f"{table32.device}")
     mixed = uses_mixed(ctx, affine, pre_reduce, ec_kernel)
-    w_off = None
+    words = (2 if mixed else 3) * L // 2
+    if not pre_reduce and table32 is not None and (
+            tuple(table32.shape) != (n, words)
+            or table32.dtype != torch.int32 or table32.device != dev):
+        # the kernels read rows by id without bounds: a short table would
+        # be read past its end
+        raise ValueError(f"table32 must be ({n}, {words}) int32 on {dev}, "
+                         f"got {tuple(table32.shape)} {table32.dtype} on "
+                         f"{table32.device}")
     if pre_reduce:
         sorted_d, rank, perm = _sorted_ranks(digits)
         alive = (rank & ((1 << pre_reduce) - 1)) == 0
@@ -425,42 +429,34 @@ def bucket_accumulate(points, digits, ctx: CurveCtx, c: int, n_rounds,
             n_rounds, ranges, splits, n)
         if occ > n_rounds:
             return None, occ
-        points_rows = _pre_reduce_rows(points, sorted_d, rank, perm, ctx,
-                                       pre_reduce)
-        w_off = (torch.arange(W, device=dev) * n).reshape(1, W, 1)
+        table32 = _pre_reduce_rows(points, sorted_d, rank, perm, ctx,
+                                   pre_reduce)
+        # window w's sorted positions are rows w*n .. w*n + n - 1
+        grid = grid.clamp(max=n - 1) + \
+            (torch.arange(W, device=dev) * n).reshape(1, W, 1)
     else:
         grid, found, occ = _slot_grid(digits, B, n_rounds, ranges, splits)
         if occ > n_rounds:
             return None, occ
-        if not mixed:
-            points_rows = points.permute(2, 0, 1).reshape(n, 3 * L)
+        grid = grid.clamp(max=n - 1)
+        if table32 is None:
+            table32 = point_table(points, ctx, affine, ec_kernel)
 
     S = W * B
-    R_c = 1 if ec_kernel == "round" else _chunk_rounds(n_rounds)
+    # point ids (table rows) and occupancy of every round, (n_rounds, S)
+    ids = grid.reshape(n_rounds, S).to(torch.int32)
+    found32 = found.reshape(n_rounds, S).to(torch.int32)
     buckets = packed_identity(ctx, (S,), dev)
-    if mixed:
-        if table32 is None:
-            table32 = affine_rows32(points)
-        # point ids and occupancy of every round, (n_rounds, S) int32
-        ids = grid.reshape(n_rounds, S).clamp(max=n - 1).to(torch.int32)
-        found32 = found.reshape(n_rounds, S).to(torch.int32)
-        for r0 in range(0, n_rounds, R_c):
-            buckets = bucket_rounds_mixed(buckets, table32,
-                                          ids[r0:r0 + R_c],
-                                          found32[r0:r0 + R_c], ctx)
+    if ec_kernel == "round":
+        for r in range(n_rounds):
+            buckets = bucket_round_add(buckets, table32, ids[r], found32[r],
+                                       ctx)
     else:
-        grid_c = grid.reshape(n_rounds // R_c, R_c, W, B)
-        found_c = found.reshape(n_rounds // R_c, R_c, S).to(torch.int32)
-        for ci in range(n_rounds // R_c):
-            pid = grid_c[ci].clamp(max=n - 1)
-            if w_off is not None:
-                pid = pid + w_off
-            rows = points_rows[pid.reshape(-1)]      # (R_c*S, 3L)
-            if ec_kernel == "round":
-                buckets = bucket_round_add(buckets, rows, found_c[ci, 0],
-                                           ctx)
-            else:
-                buckets = bucket_rounds_proj(buckets, rows, found_c[ci], ctx)
+        rounds_fn = bucket_rounds_mixed if mixed else bucket_rounds_proj
+        R_c = _chunk_rounds(n_rounds)
+        for r0 in range(0, n_rounds, R_c):
+            buckets = rounds_fn(buckets, table32, ids[r0:r0 + R_c],
+                                found32[r0:r0 + R_c], ctx)
     buckets = buckets.reshape(3, L // 2, W, B)
     if plan is not None:
         buckets = fold_split_buckets(buckets, ctx, ranges, splits)
@@ -571,8 +567,9 @@ def msm_hybrid(points_dev, scalars_multi, ctx: CurveCtx, c: int = None,
     time.  n_eff: a bound on the non-zero scalars per set, which tightens
     the round guess.  ec_kernel: the form of the bucket pass, "chunk" or
     "round" (`bucket_accumulate`); the results are equal.  table32: the
-    affine table packed by `affine_rows32`, for a caller that reuses one
-    table over many MSMs; else it is packed here, once."""
+    packed table of `point_table(points_dev, ctx, affine, ec_kernel)`, for
+    a caller that reuses one table over many MSMs; else it is packed here,
+    once, unless this shape's escalation memo says the pass pre-reduces."""
     n = points_dev.shape[2]
     S = scalars_multi.shape[0]
     if c is None:
@@ -581,8 +578,8 @@ def msm_hybrid(points_dev, scalars_multi, ctx: CurveCtx, c: int = None,
     key = (n, S, c, ctx.cv.name, n_eff)
     rounds, pre = _escalation_memo.get(
         key, (occupancy_guess(n_eff or n, ctx, c), 0))
-    if table32 is None:
-        table32 = mixed_table(points_dev, ctx, affine, ec_kernel)
+    if table32 is None and pre == 0:
+        table32 = point_table(points_dev, ctx, affine, ec_kernel)
     while True:
         totals, occ = msm_totals(points_dev, scalars_multi, ctx, c, rounds,
                                  pre, affine, ec_kernel, table32)
@@ -604,7 +601,7 @@ def msm_device(points, scalars, ctx: CurveCtx, c: int, affine=False):
     pre = 0
     digits = fd.get_digits(scalars, c, _n_windows(ctx, c))
     plan = window_plan(ctx, c, dup=True)
-    table32 = mixed_table(points, ctx, affine)
+    table32 = point_table(points, ctx, affine)
     while True:
         buckets, occ = bucket_accumulate(points, digits, ctx, c, rounds,
                                          plan=plan, pre_reduce=pre,

@@ -218,7 +218,7 @@ def _create_ipp_per_round(transcript, Gf_m, Hf_m, pts_dev, A, B, ctx,
     fold-in becomes the running factors' start); A, B: (Lr, n) Montgomery
     a and b.  window: the MSM's c (default `pick_window(2n + 2)`);
     ec_kernel: the bucket pass's form (`msm.bucket_accumulate`);
-    table32: the affine table packed (`_ipa_table`), shared by the rounds.
+    table32: the packed table (`_ipa_table`), shared by the rounds.
     Returns (L_vec, R_vec, a, b)."""
     fr = ctx.fr
     dev = A.device
@@ -271,7 +271,8 @@ def create_ipp_device(transcript, Q, G_factors, H_factors, G_vec, H_vec,
     `device`, with the transcript schedule of `ipp.rs:35-202`."""
     ctx = CurveCtx(curve())
     fr = ctx.fr
-    pts, affine, table32 = _ipa_table(G_vec, H_vec, Q, ctx, device)
+    pts, affine, table32 = _ipa_table(G_vec, H_vec, Q, ctx, device,
+                                      ec_kernel)
     return _create_ipp_per_round(
         transcript, _mont(fr, G_factors, device),
         _mont(fr, H_factors, device), pts, _mont(fr, a_vec, device),
@@ -279,19 +280,21 @@ def create_ipp_device(transcript, Q, G_factors, H_factors, G_vec, H_vec,
         table32=table32)
 
 
-def _ipa_table(G_vec, H_vec, Q, ctx, device):
+def _ipa_table(G_vec, H_vec, Q, ctx, device, ec_kernel="chunk"):
     """The IPA's MSM table [G | H | Q | identity] on `device`: (points
-    (3, L, 2n+2), whether affine, and for an affine table its kernel-1 rows
-    packed (`affine_rows32`), else None), the G and H parts from
-    `_pts_cache`.  The identity column's scalars are always zero, so the
-    scheduler never adds it (its packed row is zeros, never read) and the
-    table stays fit for the mixed-add kernel."""
+    (3, L, 2n+2), whether affine, and the packed table its bucket passes
+    read, made once a proof (`msm.point_table`)), the G and H parts from
+    `_pts_cache`.  Kernel 1's affine table concatenates the cached packed
+    rows; its identity row is zeros, never read: the identity column's
+    scalars are always zero, so the scheduler never adds it, and the table
+    stays fit for the mixed-add kernel."""
     Gd, affG, G32 = _pts_cache.get(G_vec, ctx, device)
     Hd, affH, H32 = _pts_cache.get(H_vec, ctx, device)
     Qd, affQ = to_device_points_affine([Q], ctx, device)
     pts = torch.cat([Gd, Hd, Qd, ctx.identity_like((1,), device)], dim=2)
-    if not (affG and affH and affQ):
-        return pts, False, None
+    affine = affG and affH and affQ
+    if not msm_mod.uses_mixed(ctx, affine, 0, ec_kernel):
+        return pts, affine, msm_mod.point_table(pts, ctx, affine, ec_kernel)
     table32 = torch.cat([G32, H32, affine_rows32(Qd),
                          torch.zeros_like(G32[:1])], dim=0)
     return pts, True, table32

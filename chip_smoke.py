@@ -11,9 +11,12 @@ Phases, each printing one JSON line with its seconds:
   1 build    nvcc of csrc/ec_kernels.cu and csrc/mxu_kernels.cu, in
              parallel, into ctypes libraries;
   2 kernels  each kernel against its plain version at the width each path
-             gives it (bit-exact; kernel 5 also against kernel 4): kernel 1
-             from a packed point table and slot grid at the MSM's and the
-             IPA's slots, kernel 3 pairwise and its sequential forms (the
+             gives it (bit-exact; kernel 5 also against kernel 4): the
+             bucket kernels from a packed point table of the path's size
+             by a random slot grid, kernel 1 at the MSM's and the IPA's
+             slots, kernel 2 at the MSM's from a pre-reduced table of W*n
+             rows, kernel 4 at the IPA's, kernel 3 pairwise and its
+             sequential forms (the
              folds, row and column sums, window totals and Horner of the
              combine) at the range proof's and the MSM's combine shapes;
              with the bare kernel's time on operands prepared beforehand
@@ -43,7 +46,9 @@ Phases, each printing one JSON line with its seconds:
              times, and t_x + 1 rejected;
   7 mxu_race one per-round bucket pass of the IPA MSM (its rounds over
              S slots) through kernel 5 and through kernel 4, in turns, with
-             microseconds per round and the buckets bit-exact at the end;
+             microseconds per round and the buckets bit-exact at the end
+             (kernel 4 reads its rows by id from the packed table, kernel 5
+             is given the rows gathered from it by the same ids);
   8 launches the launch counts of each path (phases 3-4, 5, 6, 7), kernel
              3's also by form, each kernel of a path (and each form of
              kernel 3 the path runs, `PATHS`) required > 0 there,
@@ -76,7 +81,7 @@ from bulletproofs_tpu_torch.ops.ec import (CurveCtx, content_digest,
                                            to_device_points_affine,
                                            to_device_scalars)
 from bulletproofs_tpu_torch.models import bound_check
-from bulletproofs_tpu_torch.ops.field import pack32
+from bulletproofs_tpu_torch.ops.field import pack32, unpack32
 from bulletproofs_tpu_torch.ops.ec_host import G1, msm_host
 from bulletproofs_tpu_torch.ops.field_host import Scalar, inner_product
 from bulletproofs_tpu_torch.utils.errors import VerificationError
@@ -226,13 +231,13 @@ def phase_kernels(device, n, seed, reps=5, r1cs_msm_n=4098):
     """Each kernel against its plain version at the width of its path: the
     chunked kernels at the MSM's S = W*B slots of `window_plan(dup=True)`
     at c = pick_window(n) and R_c = EC_CHUNK rounds, kernel 1 also at the
-    IPA MSM's slots, gathering its rows from a packed table of the path's
-    size (n rows; 2n + 2 for the IPA) by a random slot grid; the per-round
-    kernels at the IPA's slots; kernel 3 pairwise at n + 3 points and its
-    sequential forms at the combine's shapes of the range proof's two-set
-    MSM (r1cs_msm_n points) and of the n-point MSM.  ~30% empty slots,
-    half the accumulators start at the identity, one slot is forced to
-    double.  Returns per-kernel records."""
+    IPA MSM's slots, kernel 4 at the IPA's; each bucket kernel gathers its
+    rows from a packed table of its path's size (kernel 1: n rows, 2n + 2
+    for the IPA; kernel 2: the pre-reduced table's W*n; kernel 4: 2n + 2)
+    by a random slot grid (`slot_grid`); kernel 3 pairwise at n + 3 points
+    and its sequential forms at the combine's shapes of the range proof's
+    two-set MSM (r1cs_msm_n points) and of the n-point MSM.  Half the
+    accumulators start at the identity.  Returns per-kernel records."""
     t0 = time.time()
     device = torch.device(device)
     cv = BLS381
@@ -240,7 +245,8 @@ def phase_kernels(device, n, seed, reps=5, r1cs_msm_n=4098):
     L = ctx.fp.L
     c = msm_mod.pick_window(n)
     ranges, _, _ = msm_mod.window_plan(ctx, c, dup=True)
-    S = ranges.shape[0] << c
+    W = ranges.shape[0]
+    S = W << c
     R_c = msm_mod.EC_CHUNK
     rnd = random.Random(seed)
     gen = torch.Generator().manual_seed(seed)
@@ -254,42 +260,53 @@ def phase_kernels(device, n, seed, reps=5, r1cs_msm_n=4098):
                                       table_pts[:1])]
     proj = to_device_points(proj_pts, ctx, device)
     acc_pts = to_device_points(_random_points(rnd, m, cv), ctx, device)
-    half = S // 2
-    idx = torch.randint(0, acc_pts.shape[2], (S - half,), generator=gen)
-    buckets = torch.cat([ctx.identity_like((half,), device),
-                         acc_pts[:, :, idx.to(device)]], dim=2)
 
-    def rounds_input(S_k, n_rows):
-        """R_c rounds of S_k slots over a table of n_rows points (the m
-        distinct ones repeated): (ids, found) with slot 0 doubling in
-        round 1, and the packed table and projective rows they give."""
-        pid = torch.randint(0, n_rows, (R_c, S_k), generator=gen)
-        found = (torch.rand((R_c, S_k), generator=gen) < 0.7).to(
-            torch.int32)
-        pid[1, 0] = pid[0, 0]
-        found[0, 0] = found[1, 0] = 1
-        pid, found = pid.to(device), found.to(device)
+    def accumulators(S_k):
+        """S_k packed accumulators, the first half identities."""
+        idx = torch.randint(0, m, (S_k - S_k // 2,), generator=gen)
+        return pack32(torch.cat([ctx.identity_like((S_k // 2,), device),
+                                 acc_pts[:, :, idx.to(device)]], dim=2), 1)
+
+    def tables(n_rows):
+        """Kernel 1's affine and kernels 2 and 4's projective packed
+        tables of n_rows rows, row i the point i mod m."""
         rows_of = torch.arange(n_rows, device=device) % m
-        table32 = ek.affine_rows32(table)[rows_of]
-        rows_proj = proj.permute(2, 0, 1).reshape(m, 3 * L)[
-            rows_of[pid.reshape(-1)]]
-        return pid.to(torch.int32), found, table32, rows_proj
+        return (ek.affine_rows32(table)[rows_of],
+                ek.proj_rows32(proj)[rows_of])
 
-    ids, found, table32, rows_proj = rounds_input(S, n)
+    def slot_grid(R, S_k, n_rows):
+        """(ids, found) (R, S_k) int32 over a table of n_rows rows: ~30%
+        of the slots empty, the 8 slots of one warp empty in every round,
+        slot S_k - 1 reading the table's last row, and slot 0 (an
+        identity accumulator) adding one point in rounds 0 and 1, so it
+        doubles in round 1."""
+        pid = torch.randint(0, n_rows, (R, S_k), generator=gen)
+        found = (torch.rand((R, S_k), generator=gen) < 0.7).to(
+            torch.int32)
+        found[:, 8:16] = 0
+        pid[:, -1] = n_rows - 1
+        found[:, -1] = 1
+        if R > 1:
+            pid[1, 0] = pid[0, 0]
+        found[:2, 0] = 1
+        return pid.to(torch.int32).to(device), found.to(device)
+
+    buckets = accumulators(S)
+    table32, _ = tables(n)
+    ids, found = slot_grid(R_c, S, n)
+    _, table_pre = tables(W * n)          # kernel 2 after pre-reduction
+    ids_pre, found_pre = slot_grid(R_c, S, W * n)
 
     S_ipa = ipa_slots(n)                  # the IPA's two-set MSM
-    idx = torch.randint(0, acc_pts.shape[2], (S_ipa - S_ipa // 2,),
-                        generator=gen)
-    buckets_ipa = torch.cat([ctx.identity_like((S_ipa // 2,), device),
-                             acc_pts[:, :, idx.to(device)]], dim=2)
-    ids_ipa, found_ipa_c, table32_ipa, _ = rounds_input(S_ipa, 2 * n + 2)
-    pid_ipa = torch.randint(0, m, (S_ipa,), generator=gen).to(device)
-    found_ipa = (torch.rand(S_ipa, generator=gen) < 0.7).to(torch.int32)
-    found_ipa[-1] = 1
-    found_ipa = found_ipa.to(device)
-    rows_ipa = proj.permute(2, 0, 1).reshape(m, 3 * L)[pid_ipa]
+    buckets_ipa = accumulators(S_ipa)
+    table32_ipa, table_ipa = tables(2 * n + 2)
+    ids_ipa, found_ipa_c = slot_grid(R_c, S_ipa, 2 * n + 2)
+    ids4, found4 = (x[0] for x in slot_grid(1, S_ipa, 2 * n + 2))
     buckets_round = buckets_ipa.clone()
-    buckets_round[:, :, -1] = proj[:, :, pid_ipa[-1]]       # P + P
+    buckets_round[:, :, 0] = table_ipa[ids4[0]].reshape(3, -1)  # P + P
+    # kernel 5's operands: limb accumulators, the rows gathered by ids4
+    rows_ipa = unpack32(table_ipa[ids4.long()], 1)
+    buckets_round_limbs = unpack32(buckets_round, 1)
 
     n_add = n + 3                         # ragged: not a multiple of a tile
     ia = torch.randint(0, m, (n_add,), generator=gen).to(device)
@@ -307,11 +324,12 @@ def phase_kernels(device, n, seed, reps=5, r1cs_msm_n=4098):
 
     def rounds_work(found_k, row_words, empty_muls, ids_read=False):
         """(bytes, IMADs) of the rounds the data needs: the accumulators
-        read and written once, `found` read, a row (and, for kernel 1, its
-        point id) read only where its slot is occupied; an occupied slot's
-        add takes 11 (mixed) or 12 products, an empty one `empty_muls` (a
-        projective add of the identity is (X*Y : Y*Y : Z*Y), 3 products;
-        the mixed kernel keeps the slot, 0)."""
+        read and written once, `found` read, a row (and, for the kernels
+        that read a table, its point id) read only where its slot is
+        occupied; an occupied slot's add takes 11 (mixed) or 12 products,
+        an empty one `empty_muls` (a projective add of the identity is
+        (X*Y : Y*Y : Z*Y), 3 products; the mixed kernel keeps the slot,
+        0)."""
         slots = found_k.numel()
         live = int(found_k.sum())
         full = 11 if row_words == 2 * nl else 12
@@ -322,17 +340,19 @@ def phase_kernels(device, n, seed, reps=5, r1cs_msm_n=4098):
     def packed(x):
         return pack32(x, 1).contiguous()
 
-    def in_place(bare):
-        """A bare launch of a kernel that updates its packed accumulators
-        in place (kernels 2, 4, 5), on operands packed beforehand."""
-        def make(args):
-            ops = ek.pack_rounds(*args)
-            return lambda: bare(*ops, ctx)
-        return make
+    def bare_kernel5(args):
+        """Kernel 5's bare launch, updating its packed accumulators in
+        place, on operands packed beforehand."""
+        ops = ek.pack_rounds(*args)
+        return lambda: ek.bucket_round_add_mxu32(*ops, ctx)
 
-    def bare_mixed(args):
-        out = torch.empty_like(args[0])
-        return lambda: ek.bucket_rounds_mixed32(out, *args, ctx)
+    def bare_table(launch):
+        """A bucket kernel's bare launch from its table, into a new
+        accumulator tensor."""
+        def make(args):
+            out = torch.empty_like(args[0])
+            return lambda: launch(out, *args, ctx)
+        return make
 
     def bare_add(args):
         P32, Q32 = (packed(a) for a in args)
@@ -342,34 +362,37 @@ def phase_kernels(device, n, seed, reps=5, r1cs_msm_n=4098):
     #  (bytes the kernel moves, IMADs of its mont_muls), shape);
     # the first record of a name is its kernel-line record
     chunk_shape = {"S": S, "R_c": R_c}
-    mixed_args = (packed(buckets), table32, ids, found)
-    mixed_args_ipa = (packed(buckets_ipa), table32_ipa, ids_ipa,
-                      found_ipa_c)
     cases = [
         ("bucket_rounds_mixed", ek.bucket_rounds_mixed,
-         ek.bucket_rounds_mixed_plain, mixed_args, bare_mixed,
+         ek.bucket_rounds_mixed_plain, (buckets, table32, ids, found),
+         bare_table(ek.bucket_rounds_mixed32),
          rounds_work(found, 2 * nl, 0, ids_read=True),
          {**chunk_shape, "table_rows": n}),
         ("bucket_rounds_mixed", ek.bucket_rounds_mixed,
-         ek.bucket_rounds_mixed_plain, mixed_args_ipa, bare_mixed,
+         ek.bucket_rounds_mixed_plain,
+         (buckets_ipa, table32_ipa, ids_ipa, found_ipa_c),
+         bare_table(ek.bucket_rounds_mixed32),
          rounds_work(found_ipa_c, 2 * nl, 0, ids_read=True),
          {"S": S_ipa, "R_c": R_c, "table_rows": 2 * n + 2}),
         ("bucket_rounds_proj", ek.bucket_rounds_proj,
-         ek.bucket_rounds_proj_plain, (buckets, rows_proj, found),
-         in_place(ek.bucket_rounds_proj32), rounds_work(found, 3 * nl, 3),
-         chunk_shape),
+         ek.bucket_rounds_proj_plain,
+         (buckets, table_pre, ids_pre, found_pre),
+         bare_table(ek.bucket_rounds_proj32),
+         rounds_work(found_pre, 3 * nl, 3, ids_read=True),
+         {**chunk_shape, "table_rows": W * n}),
         ("ec_add", ek.ec_add, ek.ec_add_plain, (P, Q), bare_add,
          (3 * pt_words * n_add * w32, n_add * 12 * imad), {"n": n_add}),
         ("bucket_round_add", ek.bucket_round_add,
-         ek.bucket_round_add_plain, (buckets_round, rows_ipa, found_ipa),
-         in_place(ek.bucket_round_add32), rounds_work(found_ipa, 3 * nl, 3),
-         {"S": S_ipa}),
+         ek.bucket_round_add_plain, (buckets_round, table_ipa, ids4, found4),
+         bare_table(ek.bucket_round_add32),
+         rounds_work(found4, 3 * nl, 3, ids_read=True),
+         {"S": S_ipa, "table_rows": 2 * n + 2}),
         # kernel 5: the same round on the same inputs, so kernel 4's bound
+        # less the ids
         ("bucket_round_add_mxu", ek.bucket_round_add_mxu,
          ek.bucket_round_add_mxu_plain,
-         (buckets_round, rows_ipa, found_ipa),
-         in_place(ek.bucket_round_add_mxu32),
-         rounds_work(found_ipa, 3 * nl, 3), {"S": S_ipa}),
+         (buckets_round_limbs, rows_ipa, found4), bare_kernel5,
+         rounds_work(found4, 3 * nl, 3), {"S": S_ipa}),
     ]
     cases += form_cases(ctx, proj, gen, device, [
         ("r1cs", combine_shapes(r1cs_msm_n, 2)),
@@ -410,9 +433,11 @@ def phase_kernels(device, n, seed, reps=5, r1cs_msm_n=4098):
             records[name] = {**rec, "shape": shape}
 
     # kernel 5 computes kernel 4's function: the same limbs
-    round_args = (buckets_round, rows_ipa, found_ipa, ctx)
-    if not torch.equal(ek.bucket_round_add_mxu(*round_args),
-                       ek.bucket_round_add(*round_args)):
+    if not torch.equal(
+            pack32(ek.bucket_round_add_mxu(buckets_round_limbs, rows_ipa,
+                                           found4, ctx), 1),
+            ek.bucket_round_add(buckets_round, table_ipa, ids4, found4,
+                                ctx)):
         raise AssertionError("bucket_round_add_mxu differs from "
                              "bucket_round_add")
 
@@ -836,12 +861,11 @@ def phase_r1cs(device, m, bits, reps, ref):
 
 def _ipa_round_schedule(n, seed, device):
     """The bucket rounds of the IPA's first two-set MSM at n, as
-    `msm.bucket_accumulate` plans them: -> (projective rows of the table
-    [G | H | Q | identity] (2n+2, 3L), per-round row ids (R, S), found
-    (R, S))."""
+    `msm.bucket_accumulate` plans them: -> (the packed projective table
+    [G | H | Q | identity] (2n+2, 3NL), per-round point ids (R, S) int32,
+    found (R, S) int32)."""
     ctx = CurveCtx(BLS381)
     fr = ctx.fr
-    L = ctx.fp.L
     Gb, Hb, Q, a, b = _ipa_bases(n, seed)
     k = len(Gb)
     pts = [Gb[i % k] for i in range(n)] + [Hb[i % k] for i in range(n)]
@@ -860,48 +884,57 @@ def _ipa_round_schedule(n, seed, device):
                                           splits)
     if occ > rounds:
         raise AssertionError(f"mxu_race: occupancy {occ} > {rounds} rounds")
-    rows = table.permute(2, 0, 1).reshape(2 * n + 2, 3 * L)
-    ids = grid.reshape(rounds, -1).clamp(max=2 * n + 1)
-    return rows, ids, found.reshape(rounds, -1).to(torch.int32)
+    ids = grid.reshape(rounds, -1).clamp(max=2 * n + 1).to(torch.int32)
+    return (ek.proj_rows32(table), ids,
+            found.reshape(rounds, -1).to(torch.int32))
 
 
 def phase_mxu_race(device, n, seed):
     """One per-round bucket pass of the IPA MSM through kernel 5 and kernel
     4, in turns (4, 5, 5, 4): microseconds per round of each, and the
-    final buckets bit-exact.  On the card the rounds' rows are packed
-    beforehand and the bare launches are timed; on the CPU the wrappers
-    run their plain versions."""
+    final buckets bit-exact.  Kernel 4 reads its rows by id from the
+    packed table; kernel 5 is given the rows gathered from it by the same
+    ids, on the card packed beforehand, and there the bare launches are
+    timed; on the CPU the wrappers run their plain versions."""
     t0 = time.time()
     device = torch.device(device)
     ctx = CurveCtx(BLS381)
-    rows, ids, found = _ipa_round_schedule(n, seed, device)
+    table32, ids, found = _ipa_round_schedule(n, seed, device)
     R, S = found.shape
-    ident = ctx.identity_like((S,), device)
+    ident = ek.packed_identity(ctx, (S,), device)
     on_card = device.type == "cuda"
     if on_card:
-        rows32 = [pack32(rows[ids[r]], 1).contiguous() for r in range(R)]
-        found32 = found.contiguous()
-    kernels = {"bucket_round_add": (ek.bucket_round_add,
-                                    ek.bucket_round_add32),
-               "bucket_round_add_mxu": (ek.bucket_round_add_mxu,
-                                        ek.bucket_round_add_mxu32)}
+        rows32 = [table32[ids[r].long()] for r in range(R)]
 
-    def run(name):
-        wrapper, bare = kernels[name]
-        if on_card:
-            acc = pack32(ident, 1).contiguous()
-            for r in range(R):
-                bare(acc, rows32[r], found32[r], ctx)
-            return acc
-        acc = ident
+    def run_kernel4():
+        acc = ident.clone()
         for r in range(R):
-            acc = wrapper(acc, rows[ids[r]], found[r], ctx)
+            if on_card:
+                ek.bucket_round_add32(acc, acc, table32, ids[r], found[r],
+                                      ctx)
+            else:
+                acc = ek.bucket_round_add(acc, table32, ids[r], found[r],
+                                          ctx)
         return acc
 
+    def run_kernel5():
+        if on_card:
+            acc = ident.clone()
+            for r in range(R):
+                ek.bucket_round_add_mxu32(acc, rows32[r], found[r], ctx)
+            return acc
+        acc = unpack32(ident, 1)
+        for r in range(R):
+            acc = ek.bucket_round_add_mxu(
+                acc, unpack32(table32[ids[r].long()], 1), found[r], ctx)
+        return pack32(acc, 1)
+
+    kernels = {"bucket_round_add": run_kernel4,
+               "bucket_round_add_mxu": run_kernel5}
     us, out = {}, {}
     for name in ("bucket_round_add", "bucket_round_add_mxu",
                  "bucket_round_add_mxu", "bucket_round_add"):
-        ms, out[name] = time_ms(lambda: run(name), device, 1)
+        ms, out[name] = time_ms(kernels[name], device, 1)
         us.setdefault(name, []).append(ms * 1e3 / R)
     if not torch.equal(out["bucket_round_add"],
                        out["bucket_round_add_mxu"]):

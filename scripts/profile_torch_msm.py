@@ -2,7 +2,7 @@
 goes on the card.
 
     python3 scripts/profile_torch_msm.py [--n 65536] [--seed S] [--bits]
-    python3 scripts/profile_torch_msm.py --r1cs [--seed S]
+    python3 scripts/profile_torch_msm.py --r1cs [--bits] [--seed S]
 
 Default: runs `bulletproofs_tpu_torch.ops.msm.msm_hybrid` on chip_smoke.py's
 bench input (n points from 256 repeated bases, scalars uniform mod r, or
@@ -12,7 +12,9 @@ bits with --bits), warms up, then:
   - traces one MSM with torch.profiler.
 --r1cs: the bench's config 2 (chip_smoke.py phase 6: m = 16 aggregated
 64-bit range proofs, n = 2048, BLS12-381): one warm-up proof, 3 timed
-proofs (p50), then one traced proof.
+proofs (p50), then one traced proof; with --bits, the bit-vector MSM's
+line follows (its pre-reduction passes show as kernel 3 pairwise and
+the elementwise torch around it, its rounds as kernel 2).
 The trace gives the device time by kernel, grouped (the port's kernels and
 kernel 3's forms, sorts, gathers, elementwise torch) and by name, with the
 device's busy time and its idle share of the traced wall.  Prints one JSON
@@ -157,18 +159,20 @@ def main():
     ap.add_argument("--seed", type=int, default=0xBE7C)
     ap.add_argument("--bits", action="store_true")
     ap.add_argument("--r1cs", action="store_true",
-                    help="trace one config-2 range proof instead")
+                    help="trace one config-2 range proof (and then, with "
+                    "--bits, the bit-vector MSM)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_torch_msm: no CUDA device")
     dev = torch.device("cuda")
-    with using_curve(BLS381):
-        out = profile_r1cs(args, dev) if args.r1cs else profile_msm(args,
-                                                                    dev)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
-    print(json.dumps({**out, "card": smi}))
+    with using_curve(BLS381):
+        if args.r1cs:
+            print(json.dumps({**profile_r1cs(args, dev), "card": smi}))
+        if args.bits or not args.r1cs:
+            print(json.dumps({**profile_msm(args, dev), "card": smi}))
 
 
 if __name__ == "__main__":

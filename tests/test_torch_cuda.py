@@ -33,32 +33,40 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _round_inputs(cv, seed, S, R_c, width, device, with_ids=False):
-    """Accumulators (half identity), rows from a 16-point table (affine
-    (X, Y) for width 2, projective for 3), ~70% occupancy, slot 0 doubling
-    in round 1.  with_ids: also kernel 1's packed table and the point ids
-    (R_c, S) int32."""
+def _round_inputs(cv, seed, S, R_c, width, device, n_rows=16):
+    """Accumulators (half identity), ~70% occupancy and point ids (R_c, S)
+    int32 over a packed table of n_rows rows (16 points repeated; affine
+    (X, Y) rows for width 2, kernel 1's, projective for 3, kernels 2 and
+    4's), slot 0 doubling in round 1 -> (ctx, acc, found, proj, table32,
+    ids); proj are the 16 projective points."""
     ctx = E.CurveCtx(cv)
-    L = ctx.fp.L
     rnd = random.Random(seed)
     gen = torch.Generator().manual_seed(seed)
     pts = [bt.G1.random(rnd, cv) for _ in range(16)]
     aff, _ = E.to_device_points_affine(pts, ctx, device)
     proj = E.to_device_points([p + p for p in pts], ctx, device)
-    table = aff[:2] if width == 2 else proj
-    rows_all = table.permute(2, 0, 1).reshape(16, width * L)
+    table = ek.affine_rows32(aff) if width == 2 else ek.proj_rows32(proj)
+    table32 = table[torch.arange(n_rows, device=device) % 16]
     idx = torch.randint(0, 16, (S - S // 2,), generator=gen).to(device)
     acc = torch.cat([ctx.identity_like((S // 2,), device), proj[:, :, idx]],
                     dim=2)
-    pid = torch.randint(0, 16, (R_c, S), generator=gen)
-    pid[1, 0] = pid[0, 0]
+    pid = torch.randint(0, n_rows, (R_c, S), generator=gen)
     found = (torch.rand((R_c, S), generator=gen) < 0.7).to(torch.int32)
-    found[0, 0] = found[1, 0] = 1
-    rows = rows_all[pid.reshape(-1).to(device)]
-    if with_ids:
-        return (ctx, acc, rows, found.to(device), proj, ek.affine_rows32(aff),
-                pid.to(torch.int32).to(device))
-    return ctx, acc, rows, found.to(device), proj
+    if R_c > 1:
+        pid[1, 0] = pid[0, 0]
+        found[0, 0] = found[1, 0] = 1
+    return (ctx, acc, found.to(device), proj, table32,
+            pid.to(torch.int32).to(device))
+
+
+_BUCKET_KERNELS = {
+    "mixed": ("bucket_rounds_mixed", ek.bucket_rounds_mixed,
+              ek.bucket_rounds_mixed_plain, ek.bucket_rounds_mixed32),
+    "proj": ("bucket_rounds_proj", ek.bucket_rounds_proj,
+             ek.bucket_rounds_proj_plain, ek.bucket_rounds_proj32),
+    "round": ("bucket_round_add", ek.bucket_round_add,
+              ek.bucket_round_add_plain, ek.bucket_round_add32),
+}
 
 
 @pytest.mark.cuda
@@ -67,47 +75,67 @@ def _round_inputs(cv, seed, S, R_c, width, device, with_ids=False):
 def test_kernel_matches_plain_on_card(kernel, curve, cuda_device):
     S, R_c = 1000, 5                      # S not a multiple of the block
     width = 2 if kernel == "mixed" else 3
-    ctx, acc, rows, found, _, table32, ids = _round_inputs(
-        CURVES[curve], 9, S, R_c, width, cuda_device, with_ids=True)
+    ctx, acc, found, _, table32, ids = _round_inputs(
+        CURVES[curve], 9, S, R_c, width, cuda_device)
     ek.reset_launches()
     if kernel == "ec_add":
         P, Q = acc, acc.flip(-1).contiguous()
         got, want = ek.ec_add(P, Q, ctx), ek.ec_add_plain(P, Q, ctx)
-        key = "ec_add"
-    elif kernel == "mixed":
-        # kernel 1 gathers its rows from the packed table by point id
-        acc32 = pack32(acc, 1)
-        got = unpack32(ek.bucket_rounds_mixed(acc32, table32, ids, found,
-                                              ctx), 1)
-        want = unpack32(ek.bucket_rounds_mixed_plain(acc32, table32, ids,
-                                                     found, ctx), 1)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
-        out = torch.empty_like(acc32)     # the bare launch, in place too
-        ek.bucket_rounds_mixed32(out, acc32, table32, ids, found, ctx)
-        ek.bucket_rounds_mixed32(acc32, acc32, table32, ids, found, ctx)
-        assert torch.equal(unpack32(out, 1), want)
-        assert torch.equal(unpack32(acc32, 1), want)
-        assert ek.launches["bucket_rounds_mixed"] == 3
-        return
-    else:
-        got = ek.bucket_rounds_proj(acc, rows, found, ctx)
-        want = ek.bucket_rounds_proj_plain(acc, rows, found, ctx)
-        key = "bucket_rounds_proj"
-    torch.cuda.synchronize()
-    assert torch.equal(got, want)
-    assert ek.launches[key] == 1
-    if kernel == "ec_add":           # the bare launch on packed operands
         bare = ek.ec_add32(pack32(P, 1).contiguous(),
                            pack32(Q, 1).contiguous(), ctx)
         packed = ek.ec_add(pack32(P, 1), pack32(Q, 1), ctx)
-    else:
-        bare, rows32, found32 = ek.pack_rounds(acc, rows, found)
-        ek.bucket_rounds_proj32(bare, rows32, found32, ctx)
-        packed = ek.bucket_rounds_proj(pack32(acc, 1), rows, found, ctx)
-    assert torch.equal(unpack32(bare, 1), want)
-    assert torch.equal(unpack32(packed, 1), want)     # packed operands
+        assert torch.equal(unpack32(bare, 1), want)
+        assert torch.equal(unpack32(packed, 1), want)  # packed operands
+        assert ek.launches["ec_add"] == 3
+        return
+    # kernels 1 and 2 gather their rows from the packed table by point id
+    key, wrapper, plain, launch = _BUCKET_KERNELS[kernel]
+    acc32 = pack32(acc, 1)
+    got = wrapper(acc32, table32, ids, found, ctx)
+    want = plain(acc32, table32, ids, found, ctx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    out = torch.empty_like(acc32)         # the bare launch, in place too
+    launch(out, acc32, table32, ids, found, ctx)
+    launch(acc32, acc32, table32, ids, found, ctx)
+    assert torch.equal(out, want)
+    assert torch.equal(acc32, want)
     assert ek.launches[key] == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("curve", sorted(CURVES))
+@pytest.mark.parametrize("kernel", ["proj", "round"])
+def test_table_kernel_edge_slots_on_card(kernel, curve, cuda_device):
+    """Kernels 2 and 4 from a packed table of 4098 rows, S = 1000 slots
+    (125 warps of 8 groups, the last block partly past S): a warp whose
+    slots are all empty (it takes the identity's 3 products), a warp with
+    one live slot (its empty slots add the identity row), the table's last
+    row read, and for kernel 4 a slot doubling (accumulator == row):
+    bit-exact against the plain version, one launch a call."""
+    S, n_rows = 1000, 4098
+    R_c = 4 if kernel == "proj" else 1
+    ctx, acc, found, _, table32, ids = _round_inputs(
+        CURVES[curve], 15, S, R_c, 3, cuda_device, n_rows=n_rows)
+    found[:, 8:16] = 0
+    found[:, 16:24] = 0
+    found[:, 19] = 1
+    ids[:, -1] = n_rows - 1
+    found[:, -1] = 1
+    acc32 = pack32(acc, 1)
+    if kernel == "round":
+        ids, found = ids[0], found[0]
+        acc32[:, :, 2] = table32[ids[2]].reshape(3, -1)     # P + P
+        found[2] = 1
+    key, wrapper, plain, _ = _BUCKET_KERNELS[kernel]
+    ek.reset_launches()
+    got = wrapper(acc32, table32, ids, found, ctx)
+    assert ek.launches[key] == 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain(acc32, table32, ids, found, ctx))
+    assert ek.launches[key] == 1
 
 
 def _packed_points(ctx, proj, count, seed, device):
@@ -130,7 +158,7 @@ def test_sequential_form_matches_plain_on_card(form, curve, cuda_device):
     for the Horner, of a one-set MSM (`msm_device`): bit-exact against
     their plain versions, one launch each."""
     cv = CURVES[curve]
-    ctx, _, _, _, proj = _round_inputs(cv, 21, 64, 2, 3, cuda_device)
+    ctx, _, _, proj, _, _ = _round_inputs(cv, 21, 64, 2, 3, cuda_device)
     c, B = 8, 256
     ranges, splits, dup = M.window_plan(ctx, c, n_sets=2, dup=True)
     Wr = ranges.shape[0]
@@ -198,7 +226,7 @@ def test_bucket_rounds_mixed_table_on_card(curve, cuda_device):
 def test_ec_add_kernel_batch_shapes_on_card(cuda_device):
     """(3, L, W, B)-shaped operands, as the combine passes them, and an
     empty batch."""
-    ctx, acc, _, _, _ = _round_inputs(BLS381, 4, 96, 2, 3, cuda_device)
+    ctx, acc, _, _, _, _ = _round_inputs(BLS381, 4, 96, 2, 3, cuda_device)
     P = acc.reshape(3, ctx.fp.L, 6, 16)
     Q = P.roll(1, dims=-1)
     assert torch.equal(ek.ec_add(P, Q, ctx), ek.ec_add_plain(P, Q, ctx))
@@ -249,19 +277,19 @@ def test_msm_entry_on_card(cuda_device):
 @pytest.mark.parametrize("curve", sorted(CURVES))
 def test_bucket_round_add_matches_plain_on_card(curve, cuda_device):
     """Kernel 4 at the slot count of the n = 2^16 IPA's two-set MSM
-    (66 rows of 256 buckets), wrapped and bare."""
+    (66 rows of 256 buckets), from a packed table of 4098 rows, wrapped and
+    bare."""
     S = 16896
-    ctx, acc, rows, found, _ = _round_inputs(CURVES[curve], 12, S, 2, 3,
-                                             cuda_device)
-    rows, found = rows[:S].contiguous(), found[0].contiguous()
+    ctx, acc, found, _, table32, ids = _round_inputs(
+        CURVES[curve], 12, S, 1, 3, cuda_device, n_rows=4098)
+    acc32, ids, found = pack32(acc, 1), ids[0], found[0]
     ek.reset_launches()
-    got = ek.bucket_round_add(acc, rows, found, ctx)
-    want = ek.bucket_round_add_plain(acc, rows, found, ctx)
+    got = ek.bucket_round_add(acc32, table32, ids, found, ctx)
+    want = ek.bucket_round_add_plain(acc32, table32, ids, found, ctx)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
-    bare, rows32, found32 = ek.pack_rounds(acc, rows, found)
-    ek.bucket_round_add32(bare, rows32, found32, ctx)
-    assert torch.equal(unpack32(bare, 1), want)
+    ek.bucket_round_add32(acc32, acc32, table32, ids, found, ctx)
+    assert torch.equal(acc32, want)
     assert ek.launches["bucket_round_add"] == 2
 
 
@@ -269,24 +297,26 @@ def test_bucket_round_add_matches_plain_on_card(curve, cuda_device):
 @pytest.mark.parametrize("curve", sorted(CURVES))
 def test_bucket_round_add_mxu_matches_plain_and_kernel4_on_card(
         curve, cuda_device):
-    """Kernel 5 at S = 16896: bit-exact against its plain version and
-    against kernel 4 on the same inputs, wrapped and bare."""
+    """Kernel 5 at S = 16896 on the rows kernel 4 reads from its table by
+    the same ids: bit-exact against its plain version and against kernel
+    4, wrapped and bare."""
     S = 16896
-    ctx, acc, rows, found, _ = _round_inputs(CURVES[curve], 13, S, 2, 3,
-                                             cuda_device)
-    rows, found = rows[:S].contiguous(), found[0].contiguous()
+    ctx, acc, found, _, table32, ids = _round_inputs(
+        CURVES[curve], 13, S, 1, 3, cuda_device, n_rows=4098)
+    ids, found = ids[0], found[0]
+    rows = unpack32(table32[ids.long()], 1)
     acc[:, :, -1] = rows[-1].reshape(3, ctx.fp.L)          # P + P
     found[-1] = 1
     ek.reset_launches()
     got = ek.bucket_round_add_mxu(acc, rows, found, ctx)
-    k4 = ek.bucket_round_add(acc, rows, found, ctx)
+    k4 = ek.bucket_round_add(pack32(acc, 1), table32, ids, found, ctx)
     torch.cuda.synchronize()
-    assert torch.equal(got, k4)
+    assert torch.equal(pack32(got, 1), k4)
     assert torch.equal(got, ek.bucket_round_add_mxu_plain(acc, rows, found,
                                                           ctx))
     bare, rows32, found32 = ek.pack_rounds(acc, rows, found)
     ek.bucket_round_add_mxu32(bare, rows32, found32, ctx)
-    assert torch.equal(unpack32(bare, 1), k4)
+    assert torch.equal(bare, k4)
     assert ek.launches["bucket_round_add_mxu"] == 2
 
 

@@ -226,14 +226,18 @@ def test_bucket_round_add_plain_matches_round_kernel_math():
     acc[:, :, -1] = proj[:, :, pid[-1]]
     found = (rs.random(S) < 0.7).astype(np.int32)
     found[-1] = 1
-    rows = np.transpose(proj, (2, 0, 1)).reshape(16, 3 * L)[pid]
+    rows_all = np.transpose(proj, (2, 0, 1)).reshape(16, 3 * L)
     run = jax.jit(lambda b, r, f: _round_xla(b, r, f, jctx))
-    want = np.asarray(run(jnp.asarray(acc), jnp.asarray(rows),
+    want = np.asarray(run(jnp.asarray(acc), jnp.asarray(rows_all[pid]),
                           jnp.asarray(found)))
-    got = ek.bucket_round_add(E.from_jax_points(acc, "cpu"),
-                              torch.as_tensor(rows.astype(np.int64)),
-                              torch.as_tensor(found), E.CurveCtx(CV))
-    np.testing.assert_array_equal(E.to_jax_points(got), want)
+    # kernel 4 reads the rows by point id from the packed table
+    table32 = F.pack32(torch.as_tensor(rows_all.astype(np.int64)), 1)
+    got = ek.bucket_round_add(
+        F.pack32(E.from_jax_points(acc, "cpu"), 1), table32,
+        torch.as_tensor(pid.astype(np.int32)), torch.as_tensor(found),
+        E.CurveCtx(CV))
+    np.testing.assert_array_equal(E.to_jax_points(F.unpack32(got, 1)),
+                                  want)
 
 
 def test_bucket_pass_rejects_unknown_kernel_form():

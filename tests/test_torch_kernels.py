@@ -70,19 +70,22 @@ def _round_inputs(jcv, seed, S, R_c, width, with_table=False):
 
 
 def _table32(rows_all):
-    """Affine (X, Y) limb rows (n, 2L) -> kernel 1's packed table
-    (n, 2NL) int32."""
-    n = rows_all.shape[0]
-    rows = torch.as_tensor(rows_all.astype(np.int64)).reshape(n, 2, -1)
-    return pack32(rows, 2).reshape(n, -1).contiguous()
+    """Limb rows (n, 2L) affine (X, Y) or (n, 3L) projective -> the packed
+    table (n, 2NL) of kernel 1 or (n, 3NL) of kernels 2 and 4, int32 (L is
+    even, so no word straddles two coordinates)."""
+    return pack32(torch.as_tensor(rows_all.astype(np.int64)),
+                  1).contiguous()
+
+
+def _ids(pid):
+    return torch.as_tensor(np.ascontiguousarray(pid).astype(np.int32))
 
 
 @pytest.mark.parametrize("width", [2, 3], ids=["mixed", "proj"])
 def test_bucket_rounds_plain_match_pallas_interpret(width, monkeypatch):
     """The Pallas kernel is fed the gathered rows table[pid]; the port's
-    kernel 1 the packed accumulators, the packed table and the point ids
-    (its slot grid), kernel 2 the rows with limb and with packed
-    accumulators."""
+    kernels 1 and 2 the packed accumulators, the packed table and the
+    point ids (their slot grid)."""
     monkeypatch.setenv("BP_PALLAS_INTERPRET", "1")
     from bulletproofs_tpu.ops.ec_pallas import (
         bucket_rounds_chunk_pallas, bucket_rounds_chunk_pallas_mixed)
@@ -97,19 +100,9 @@ def test_bucket_rounds_plain_match_pallas_interpret(width, monkeypatch):
                                  jnp.asarray(found), jctx))
 
     ctx = E.CurveCtx(BLS381)
-    acc_t = E.from_jax_points(acc, "cpu")
-    found_t = torch.as_tensor(found)
-    if width == 2:
-        got32 = ek.bucket_rounds_mixed(
-            pack32(acc_t, 1), _table32(rows_all),
-            torch.as_tensor(pid.astype(np.int32)), found_t, ctx)
-        np.testing.assert_array_equal(E.to_jax_points(unpack32(got32, 1)),
-                                      want)
-        return
-    rows_t = torch.as_tensor(rows.astype(np.int64))
-    got = ek.bucket_rounds_proj(acc_t, rows_t, found_t, ctx)
-    np.testing.assert_array_equal(E.to_jax_points(got), want)
-    got32 = ek.bucket_rounds_proj(pack32(acc_t, 1), rows_t, found_t, ctx)
+    kernel = ek.bucket_rounds_mixed if width == 2 else ek.bucket_rounds_proj
+    got32 = kernel(pack32(E.from_jax_points(acc, "cpu"), 1),
+                   _table32(rows_all), _ids(pid), torch.as_tensor(found), ctx)
     assert got32.dtype == torch.int32
     np.testing.assert_array_equal(E.to_jax_points(unpack32(got32, 1)), want)
 
@@ -118,21 +111,21 @@ def test_mixed_rounds_equal_general_rounds_as_group_elements():
     """The mixed add (Z2 == 1 rows) and the general add of the same affine
     rows give different projective representatives of the same points."""
     S, R_c = 64, 3
-    acc, rows_xy, found, rows_all, pid = _round_inputs(JBN254, 5, S, R_c, 2,
-                                                       with_table=True)
+    acc, _, found, rows_all, pid = _round_inputs(JBN254, 5, S, R_c, 2,
+                                                 with_table=True)
     L = JBN254.fp.n_limbs
     ctx = E.CurveCtx(BN254)
     one = np.asarray(ctx.fp.one_m).reshape(1, L)
-    rows_xyz = np.concatenate(
-        [rows_xy, np.broadcast_to(one, (R_c * S, L))], axis=1)
-    t = lambda a: torch.as_tensor(np.asarray(a).astype(np.int64))
-    mixed = unpack32(ek.bucket_rounds_mixed(
-        pack32(t(acc), 1), _table32(rows_all),
-        torch.as_tensor(pid.astype(np.int32)),
-        torch.as_tensor(found), ctx), 1)
-    general = ek.bucket_rounds_proj(t(acc), t(rows_xyz), t(found), ctx)
-    assert E.from_device_points(mixed, ctx) == \
-        E.from_device_points(general, ctx)
+    rows_all_xyz = np.concatenate(
+        [rows_all, np.broadcast_to(one, (16, L))], axis=1)
+    acc32 = pack32(torch.as_tensor(acc.astype(np.int64)), 1)
+    found_t = torch.as_tensor(found)
+    mixed = ek.bucket_rounds_mixed(acc32, _table32(rows_all), _ids(pid),
+                                   found_t, ctx)
+    general = ek.bucket_rounds_proj(acc32, _table32(rows_all_xyz),
+                                    _ids(pid), found_t, ctx)
+    assert E.from_device_points(unpack32(mixed, 1), ctx) == \
+        E.from_device_points(unpack32(general, 1), ctx)
 
 
 @pytest.mark.parametrize("curve", sorted(CURVES))
@@ -195,6 +188,89 @@ def test_wrappers_reject_mismatched_shapes():
         ek.ec_horner(acc32[:, :, :5], 2, 4, ctx)
 
 
+@pytest.mark.parametrize("kernel", ["proj", "round"])
+def test_table_wrappers_reject_bad_tables(kernel):
+    """Kernels 2 and 4 read rows by id without bounds, from a packed
+    projective table: their wrappers refuse a table of short rows, an
+    affine (2NL-wide) or int64 one, limb accumulators, and ids or found of
+    the other kernel's form or of int64."""
+    ctx = E.CurveCtx(BLS381)
+    L = ctx.fp.L
+    acc32 = pack32(torch.zeros((3, L, 8), dtype=torch.int64), 1)
+    table32 = torch.zeros((16, 3 * L // 2), dtype=torch.int32)
+    ids = torch.zeros((2, 8), dtype=torch.int32)
+    wrapper = ek.bucket_rounds_proj if kernel == "proj" \
+        else ek.bucket_round_add
+    good, other = (ids, ids[0]) if kernel == "proj" else (ids[0], ids)
+    assert wrapper(acc32, table32, good, good, ctx).shape == acc32.shape
+    for bad in (table32[:, :-1], table32[:, :L], table32.long(),
+                table32.reshape(-1)):
+        with pytest.raises(ValueError, match="table"):
+            wrapper(acc32, bad, good, good, ctx)
+    with pytest.raises(ValueError):                   # limb accumulators
+        wrapper(unpack32(acc32, 1), table32, good, good, ctx)
+    with pytest.raises(ValueError):
+        wrapper(acc32, table32, other, other, ctx)
+    with pytest.raises(ValueError):
+        wrapper(acc32, table32, good.long(), good, ctx)
+    with pytest.raises(ValueError):                   # ids of another S
+        wrapper(acc32, table32, good[..., :4], good, ctx)
+
+
+def _rows_loop(acc, rows, found, ctx):
+    """The bucket rounds on gathered rows, as kernels 2 and 4 ran before
+    they read a table: round r adds rows[r*S:(r+1)*S], or the identity
+    where found is 0, by the complete add (`ec.ec_add`)."""
+    S, L = acc.shape[2], ctx.fp.L
+    ident = ctx.identity_like((1,), "cpu")
+    for r in range(found.shape[0]):
+        delta = rows[r * S:(r + 1) * S].reshape(S, 3, L).permute(1, 2, 0)
+        delta = torch.where((found[r] != 0)[None, None], delta, ident)
+        acc = E.ec_add(acc, delta, ctx)
+    return acc
+
+
+@pytest.mark.parametrize("curve", sorted(CURVES))
+@pytest.mark.parametrize("kernel", ["proj", "round"])
+def test_table_plain_versions_match_row_loops(kernel, curve):
+    """Kernels 2 and 4's plain versions, fed the packed projective table
+    and the point ids, equal the old loop on the rows gathered from the
+    limb table: 96 slots (12 warps of 8 groups), ~70% occupied, a warp
+    whose slots are all empty, a warp with one live slot, the table's last
+    row read, a slot doubling, and out-of-range ids in empty slots (not
+    read)."""
+    cv, jcv = CURVES[curve]
+    S = 96
+    acc, _, found, rows_all, pid = _round_inputs(jcv, 37, S, 3, 3,
+                                                 with_table=True)
+    if kernel == "round":                             # one round
+        found, pid = found[:1], pid[:1]
+    found[:, 8:16] = 0                                # an empty warp
+    found[:, 16:24] = 0
+    found[:, 19] = 1                                  # one live slot
+    pid[:, -1] = 15                                   # the last row
+    found[:, -1] = 1
+    L = jcv.fp.n_limbs
+    acc[:, :, 2] = rows_all[pid[0, 2]].reshape(3, L)  # P + P
+    found[0, 2] = 1
+    rows = rows_all[pid.reshape(-1)]
+    pid = np.where(found != 0, pid, 1 << 30)          # never read
+    ctx = E.CurveCtx(cv)
+    acc_t = torch.as_tensor(acc.astype(np.int64))
+    want = _rows_loop(acc_t, torch.as_tensor(rows.astype(np.int64)),
+                      torch.as_tensor(found), ctx)
+    args = (pack32(acc_t, 1), _table32(rows_all), _ids(pid),
+            torch.as_tensor(found))
+    if kernel == "round":
+        args = args[:2] + (args[2][0], args[3][0])
+        got = ek.bucket_round_add(*args, ctx)
+        assert torch.equal(got, ek.bucket_round_add_plain(*args, ctx))
+    else:
+        got = ek.bucket_rounds_proj(*args, ctx)
+        assert torch.equal(got, ek.bucket_rounds_proj_plain(*args, ctx))
+    assert torch.equal(unpack32(got, 1), want)
+
+
 @pytest.mark.parametrize("kernel", ["mixed", "proj", "ec_add", "round",
                                     "round_mxu", "gather_sum",
                                     "window_totals", "horner"])
@@ -215,7 +291,8 @@ def test_packed_launches_refuse_cpu_tensors(kernel):
         if kernel == "ec_add":
             ek.ec_add32(acc32, acc32, ctx)
         elif kernel == "round":
-            ek.bucket_round_add32(acc32, rows32, found32[0], ctx)
+            ek.bucket_round_add32(acc32.clone(), acc32, rows32, found32[0],
+                                  found32[0], ctx)
         elif kernel == "round_mxu":
             ek.bucket_round_add_mxu32(acc32, rows32, found32[0], ctx)
         elif kernel == "mixed":
@@ -230,7 +307,8 @@ def test_packed_launches_refuse_cpu_tensors(kernel):
         elif kernel == "horner":
             ek.ec_horner32(acc32[:, :, :2].clone(), acc32, 4, 2, ctx)
         else:
-            ek.bucket_rounds_proj32(acc32, rows32, found32, ctx)
+            ek.bucket_rounds_proj32(acc32.clone(), acc32, rows32, found32,
+                                    found32, ctx)
     assert ek.launches == {k: 0 for k in ek.launches}
     assert ek.form_launches == {k: 0 for k in ek.form_launches}
 
@@ -284,19 +362,22 @@ def test_bucket_round_add_mxu_plain_matches_kernel4_plain():
     one slot doubling; the kernel-5 wrapper on the CPU runs its plain
     version and counts no launch."""
     S = 512
-    acc, rows, found = _round_inputs(JBLS381, 23, S, 2, 3)
-    rows = rows[:S]
+    acc, rows, found, rows_all, pid = _round_inputs(JBLS381, 23, S, 2, 3,
+                                                    with_table=True)
+    rows = rows[:S]                                    # round 0: pid[0]
     L = JBLS381.fp.n_limbs
     acc[:, :, -1] = rows[-1].reshape(3, L)             # P + P
     found[0, -1] = 1
     ctx = E.CurveCtx(BLS381)
-    args = (E.from_jax_points(acc, "cpu"),
-            torch.as_tensor(rows.astype(np.int64)),
-            torch.as_tensor(found[0]), ctx)
+    acc_t = E.from_jax_points(acc, "cpu")
+    found_t = torch.as_tensor(found[0])
+    args = (acc_t, torch.as_tensor(rows.astype(np.int64)), found_t, ctx)
     ek.reset_launches()
     got = ek.bucket_round_add_mxu(*args)
     assert torch.equal(got, ek.bucket_round_add_mxu_plain(*args))
-    assert torch.equal(got, ek.bucket_round_add_plain(*args))
+    k4 = ek.bucket_round_add(pack32(acc_t, 1), _table32(rows_all),
+                             _ids(pid[0]), found_t, ctx)
+    assert torch.equal(pack32(got, 1), k4)
     assert ek.launches == {k: 0 for k in ek.launches}
 
 

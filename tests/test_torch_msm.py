@@ -31,6 +31,7 @@ from bulletproofs_tpu.ops.ec_host import G1 as JG1
 import bulletproofs_tpu_torch as bt
 from bulletproofs_tpu_torch import config
 from bulletproofs_tpu_torch.ops import ec as E
+from bulletproofs_tpu_torch.ops import ec_kernels as ek
 from bulletproofs_tpu_torch.ops import field as F
 from bulletproofs_tpu_torch.ops import msm as M
 
@@ -169,29 +170,80 @@ def test_overflowing_schedule_adds_nothing():
 
 
 def test_mixed_table_is_checked_against_the_points():
-    """Kernel 1 reads table rows by point id without bounds, so
+    """The bucket kernels read table rows by point id without bounds, so
     `bucket_accumulate` refuses a packed table that is not (n, 2NL) int32
-    on the points' device; `mixed_table` packs one only where a pass runs
-    kernel 1."""
+    on the points' device where the pass runs kernel 1, or (n, 3NL) where
+    it runs kernel 2 or 4; `point_table` packs the one the pass reads."""
     cv = config.BN254
     ctx = E.CurveCtx(cv)
+    L = ctx.fp.L
     pts, ks = _msm_input(64, 4, cv)
     P, affine = E.to_device_points_affine(pts, ctx, "cpu")
     digits = F.get_digits(E.to_device_scalars(ks, ctx, "cpu"), 4,
                           M._n_windows(ctx, 4))
-    table = M.mixed_table(P, ctx, affine)
-    assert table.shape == (64, ctx.fp.L) and table.dtype == torch.int32
-    assert M.mixed_table(P, ctx, affine, ec_kernel="round") is None
-    assert M.mixed_table(P, ctx, False) is None
+    table = M.point_table(P, ctx, affine)
+    assert table.shape == (64, L) and table.dtype == torch.int32
+    proj = M.point_table(P, ctx, affine, ec_kernel="round")
+    assert torch.equal(proj, ek.proj_rows32(P))
+    assert torch.equal(proj, ek.proj_rows32(F.pack32(P, 1)))
+    assert proj.shape == (64, 3 * L // 2) and proj.dtype == torch.int32
+    assert torch.equal(F.unpack32(proj[5], 0).reshape(3, L), P[:, :, 5])
+    assert torch.equal(M.point_table(P, ctx, False), proj)
     assert not M.uses_mixed(ctx, affine, pre_reduce=1)
-    want, _ = M.bucket_accumulate(P, digits, ctx, 4, 64, affine=True)
-    got, _ = M.bucket_accumulate(P, digits, ctx, 4, 64, affine=True,
-                                 table32=table)
-    assert torch.equal(got, want)
-    for bad in (table[:-1], table.long(), table[:, :-1]):
-        with pytest.raises(ValueError, match="table32"):
-            M.bucket_accumulate(P, digits, ctx, 4, 64, affine=True,
-                                table32=bad)
+    for kernel, good, bads in (
+            ("chunk", table, (table[:-1], table.long(), table[:, :-1],
+                              proj)),
+            ("round", proj, (proj[:-1], proj[:, :-1], table))):
+        want, _ = M.bucket_accumulate(P, digits, ctx, 4, 64, affine=True,
+                                      ec_kernel=kernel)
+        got, _ = M.bucket_accumulate(P, digits, ctx, 4, 64, affine=True,
+                                     ec_kernel=kernel, table32=good)
+        assert torch.equal(got, want)
+        for bad in bads:
+            with pytest.raises(ValueError, match="table32"):
+                M.bucket_accumulate(P, digits, ctx, 4, 64, affine=True,
+                                    ec_kernel=kernel, table32=bad)
+
+
+def _pre_reduce_rows_int64(points, sorted_d, rank, perm, ctx, pre_reduce):
+    """The pre-reduction as it ran on int64 limbs before it ran on packed
+    words (the JAX package's `_pre_reduce_rows`): -> (W*n, 3L) rows."""
+    W, n = sorted_d.shape
+    L = points.shape[1]
+    P = points[:, :, perm]
+    ident = ctx.identity_like((W, 1), points.device)
+    for p in range(pre_reduce):
+        shift = 1 << p
+        d_next = torch.cat([sorted_d[:, shift:],
+                            torch.full_like(sorted_d[:, :shift], -1)], dim=1)
+        P_next = torch.cat([P[..., shift:], ident.expand(3, L, W, shift)],
+                           dim=-1)
+        mergeable = ((rank & ((2 << p) - 1)) == 0) & \
+            (d_next == sorted_d) & (sorted_d != 0)
+        P = torch.where(mergeable[None, None], E.ec_add(P, P_next, ctx), P)
+    return P.permute(2, 3, 0, 1).reshape(W * n, 3 * L)
+
+
+@pytest.mark.parametrize("curve", ["bls381", "bn254"])
+def test_pre_reduced_table_is_the_packed_int64_table(curve):
+    """`_pre_reduce_rows` runs its passes on packed words and returns
+    kernel 2's packed (W*n, 3NL) table: `pack32` of the int64 limb rows
+    the passes gave before, word for word (bit-vector scalars, n = 64,
+    c = 4, 3 passes)."""
+    cv = config.CURVES[curve]
+    ctx = E.CurveCtx(cv)
+    pts, _ = _msm_input(64, 8, cv)
+    P = E.to_device_points(pts, ctx, "cpu")
+    rnd = random.Random(9)
+    ks = [rnd.randrange(2) for _ in range(64)]
+    digits = F.get_digits(E.to_device_scalars(ks, ctx, "cpu"), 4,
+                          M._n_windows(ctx, 4))
+    sorted_d, rank, perm = M._sorted_ranks(digits)
+    got = M._pre_reduce_rows(P, sorted_d, rank, perm, ctx, 3)
+    want = _pre_reduce_rows_int64(P, sorted_d, rank, perm, ctx, 3)
+    assert got.dtype == torch.int32
+    assert got.shape == (digits.numel(), 3 * ctx.fp.L // 2)
+    assert torch.equal(got, F.pack32(want, 1))
 
 
 def test_msm_hybrid_matches_host():
@@ -259,7 +311,6 @@ def test_chip_smoke_phases_rehearse_on_cpu(capsys):
     """chip_smoke.py's phases at n = 256 on the CPU, where the wrappers run
     their plain versions: the control flow, shapes and host checks."""
     chip_smoke = importlib.import_module("chip_smoke")
-    from bulletproofs_tpu_torch.ops import ec_kernels as ek
 
     records = chip_smoke.phase_kernels("cpu", 256, 5, reps=1,
                                        r1cs_msm_n=64)
