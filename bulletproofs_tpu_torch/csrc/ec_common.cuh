@@ -129,20 +129,9 @@ __device__ __forceinline__ void mul_small(uint32_t* r, const uint32_t* a,
     for (int i = 0; i < NL; i++) r[i] = acc[i];
 }
 
-// The Montgomery product of the group law: CIOS (`mont_mul`) unless a kernel
-// passes another with the same canonical result (mxu_kernels.cu).
-template <int NL>
-struct CiosMul {
-    __device__ __forceinline__ void operator()(uint32_t* r, const uint32_t* a,
-                                               const uint32_t* b,
-                                               const Field<NL>& f) const {
-        mont_mul<NL>(r, a, b, f);
-    }
-};
-
 // Shared end of RCB16 algorithms 7 and 8: (X3, Y3, Z3) from xy, yz, xz, t0,
 // m = t1 - b3*t2 and n = t1 + b3*t2.
-template <int NL, class Mul = CiosMul<NL>>
+template <int NL>
 __device__ __forceinline__ void add_tail(uint32_t* X3, uint32_t* Y3,
                                          uint32_t* Z3, const uint32_t* xy,
                                          const uint32_t* yz,
@@ -150,70 +139,53 @@ __device__ __forceinline__ void add_tail(uint32_t* X3, uint32_t* Y3,
                                          const uint32_t* t0,
                                          const uint32_t* m,
                                          const uint32_t* n,
-                                         const Field<NL>& f,
-                                         Mul mul = Mul()) {
+                                         const Field<NL>& f) {
     uint32_t u[NL], v[NL], w[NL];
-    mul(u, xy, m, f);
-    mul(v, yz, xz, f);
+    mont_mul<NL>(u, xy, m, f);
+    mont_mul<NL>(v, yz, xz, f);
     mul_small<NL>(w, v, f.b3, f);
     sub_mod<NL>(X3, u, w, f);             // xy*m - b3*yz*xz
-    mul(u, n, m, f);
-    mul(v, t0, xz, f);
+    mont_mul<NL>(u, n, m, f);
+    mont_mul<NL>(v, t0, xz, f);
     mul_small<NL>(w, v, 3 * f.b3, f);
     add_mod<NL>(Y3, u, w, f);             // n*m + 3b3*t0*xz
-    mul(u, yz, n, f);
-    mul(v, t0, xy, f);
+    mont_mul<NL>(u, yz, n, f);
+    mont_mul<NL>(v, t0, xy, f);
     mul_small<NL>(w, v, 3, f);
     add_mod<NL>(Z3, u, w, f);             // yz*n + 3*t0*xy
 }
 
 // P1 += P2, complete projective add (RCB16 algorithm 7, 12 multiplies).
-template <int NL, class Mul = CiosMul<NL>>
+template <int NL>
 __device__ __forceinline__ void ec_add_inplace(uint32_t* X1, uint32_t* Y1,
                                                uint32_t* Z1,
                                                const uint32_t* X2,
                                                const uint32_t* Y2,
                                                const uint32_t* Z2,
-                                               const Field<NL>& f,
-                                               Mul mul = Mul()) {
+                                               const Field<NL>& f) {
     uint32_t t0[NL], t1[NL], t2[NL], xy[NL], yz[NL], xz[NL], s1[NL], s2[NL];
-    mul(t0, X1, X2, f);
-    mul(t1, Y1, Y2, f);
-    mul(t2, Z1, Z2, f);
+    mont_mul<NL>(t0, X1, X2, f);
+    mont_mul<NL>(t1, Y1, Y2, f);
+    mont_mul<NL>(t2, Z1, Z2, f);
     add_mod<NL>(s1, X1, Y1, f);
     add_mod<NL>(s2, X2, Y2, f);
-    mul(xy, s1, s2, f);
+    mont_mul<NL>(xy, s1, s2, f);
     sub_mod<NL>(xy, xy, t0, f);
     sub_mod<NL>(xy, xy, t1, f);
     add_mod<NL>(s1, Y1, Z1, f);
     add_mod<NL>(s2, Y2, Z2, f);
-    mul(yz, s1, s2, f);
+    mont_mul<NL>(yz, s1, s2, f);
     sub_mod<NL>(yz, yz, t1, f);
     sub_mod<NL>(yz, yz, t2, f);
     add_mod<NL>(s1, X1, Z1, f);
     add_mod<NL>(s2, X2, Z2, f);
-    mul(xz, s1, s2, f);
+    mont_mul<NL>(xz, s1, s2, f);
     sub_mod<NL>(xz, xz, t0, f);
     sub_mod<NL>(xz, xz, t2, f);
     mul_small<NL>(s1, t2, f.b3, f);       // b3*t2
     sub_mod<NL>(s2, t1, s1, f);           // m
     add_mod<NL>(t2, t1, s1, f);           // n
-    add_tail<NL, Mul>(X1, Y1, Z1, xy, yz, xz, t0, s2, t2, f, mul);
-}
-
-// NL consecutive words from a 16-byte aligned address.
-template <int NL>
-__device__ __forceinline__ void load_words(uint32_t* dst,
-                                           const uint32_t* src) {
-    const uint4* s = reinterpret_cast<const uint4*>(src);
-#pragma unroll
-    for (int k = 0; k < NL / 4; k++) {
-        uint4 v = s[k];
-        dst[4 * k] = v.x;
-        dst[4 * k + 1] = v.y;
-        dst[4 * k + 2] = v.z;
-        dst[4 * k + 3] = v.w;
-    }
+    add_tail<NL>(X1, Y1, Z1, xy, yz, xz, t0, s2, t2, f);
 }
 
 // One coordinate-major point (3, NL, stride) at column i.

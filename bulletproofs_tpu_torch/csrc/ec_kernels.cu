@@ -1,9 +1,10 @@
 // Hand-written Hopper (sm_90a) kernels for the G1 arithmetic of the device
 // Pippenger MSM.  Plain C interface, built by nvcc into a shared library and
 // called through ctypes (bulletproofs_tpu_torch/ops/build.py, ec_kernels.py).
-// The one-thread field and group device functions are in ec_common.cuh,
-// shared with kernel 5 (mxu_kernels.cu, its own library, built in
-// parallel); the lane-cooperative ones in ec_lanes.cuh.
+// The one-thread field and group device functions are in ec_common.cuh;
+// the lane-cooperative ones, and the projective round of kernels 2 and 4,
+// in ec_lanes.cuh, shared with kernel 5 (mxu_kernels.cu, its own library,
+// built in parallel).
 //
 // They replace the Pallas TPU kernels of bulletproofs_tpu/ops/ec_pallas.py:
 //   bp_bucket_rounds_mixed  <- bucket_rounds_chunk_pallas_mixed (:425)
@@ -64,19 +65,7 @@
 
 namespace {
 
-constexpr int kSlotBlock = 32 * kLanes;     // of kernels 1, 2 and 4
 constexpr int kSumBlock = 64;               // of the sequential forms
-
-// The group of kLanes lanes this thread belongs to, counted over the grid.
-// Groups past the last one (`count`) work on the last one, so every warp
-// stays whole for the lanes' shuffles, and store nothing (`mine` false).
-__device__ __forceinline__ long long group_index(long long count,
-                                                 bool& mine) {
-    const long long g = ((long long)blockIdx.x * blockDim.x + threadIdx.x)
-                        / kLanes;
-    mine = g < count;
-    return mine ? g : count - 1;
-}
 
 // out, acc (3, NL, S); table (n, 2NL) affine rows; ids, found (R_c, S),
 // round-major.  A group of kLanes lanes per slot loops over the R_c rounds
@@ -113,42 +102,6 @@ bucket_rounds_mixed_kernel(uint32_t* out, const uint32_t* acc,
         select_point_l<NL>(X, Y, Z, !live, sX, sY, sZ);
     }
     if (mine) store_point_l<NL>(out, S, s, X, Y, Z, ln.j);
-}
-
-// One round of RCB16 algorithm 7 for a group of kernel 2 or 4: the
-// accumulator (X : Y : Z) adds row `id` of the projective table (n, 3NL),
-// each point's X, Y, then Z words, where `live`, else the identity
-// (0 : 1 : 0), as the TPU kernels do; algorithm 7 turns the identity into
-// (X*Y : Y*Y : Z*Y), exactly, which rescales the representative.  A warp
-// with a live slot runs the whole add for each of its groups, the empty
-// ones on the identity row; a warp whose slots are all empty runs only
-// those 3 products.  Either way the words are the plain version's.
-template <int NL>
-__device__ __forceinline__ void proj_round_l(uint32_t* X, uint32_t* Y,
-                                             uint32_t* Z,
-                                             const uint32_t* table, int id,
-                                             bool live, const FieldL<NL>& fl,
-                                             const Lanes& ln) {
-    constexpr int K = NL / kLanes;
-    if (warp_needs(live)) {
-        uint32_t x2[K], y2[K], z2[K];
-        const uint32_t* row = table + (size_t)(live ? id : 0) * (3 * NL)
-                              + ln.j * K;
-#pragma unroll
-        for (int k = 0; k < K; k++) {
-            x2[k] = live ? row[k] : 0u;
-            y2[k] = live ? row[NL + k] : fl.one[k];
-            z2[k] = live ? row[2 * NL + k] : 0u;
-        }
-        ec_add_l<NL>(X, Y, Z, x2, y2, z2, fl, ln);
-    } else {
-        uint32_t y[K];
-#pragma unroll
-        for (int k = 0; k < K; k++) y[k] = Y[k];
-        mont_mul_l<NL>(X, X, y, fl, ln);
-        mont_mul_l<NL>(Z, Z, y, fl, ln);
-        mont_mul_l<NL>(Y, y, y, fl, ln);
-    }
 }
 
 // out, acc (3, NL, S); table (n, 3NL) projective rows; ids, found (R_c, S),
@@ -321,10 +274,6 @@ ec_horner_kernel(uint32_t* out, const uint32_t* totals, int n_sets, int wps,
         ec_add_l<NL>(X, Y, Z, x2, y2, z2, fl, ln);
     }
     if (mine) store_point_l<NL>(out, n_sets, set, X, Y, Z, ln.j);
-}
-
-unsigned groups_grid(long long groups, int block) {
-    return (unsigned)((groups * kLanes + block - 1) / block);
 }
 
 }  // namespace

@@ -268,8 +268,20 @@ __device__ __forceinline__ void mul_small_l(uint32_t* r, const uint32_t* a,
     for (int i = 0; i < K; i++) r[i] = acc[i];
 }
 
-// The shared end of RCB16 algorithms 7 and 8 (see ec_common.cuh add_tail).
+// The Montgomery product of the group law below: CIOS (`mont_mul_l`) unless
+// a kernel passes another with the same canonical result (mxu_kernels.cu).
 template <int NL>
+struct CiosMulL {
+    __device__ __forceinline__ void operator()(uint32_t* r, const uint32_t* a,
+                                               const uint32_t* b,
+                                               const FieldL<NL>& f,
+                                               const Lanes& ln) const {
+        mont_mul_l<NL>(r, a, b, f, ln);
+    }
+};
+
+// The shared end of RCB16 algorithms 7 and 8 (see ec_common.cuh add_tail).
+template <int NL, class Mul = CiosMulL<NL>>
 __device__ __forceinline__ void add_tail_l(uint32_t* X3, uint32_t* Y3,
                                            uint32_t* Z3, const uint32_t* xy,
                                            const uint32_t* yz,
@@ -278,55 +290,57 @@ __device__ __forceinline__ void add_tail_l(uint32_t* X3, uint32_t* Y3,
                                            const uint32_t* m,
                                            const uint32_t* n,
                                            const FieldL<NL>& f,
-                                           const Lanes& ln) {
+                                           const Lanes& ln,
+                                           const Mul& mul = Mul()) {
     constexpr int K = NL / kLanes;
     uint32_t u[K], v[K], w[K];
-    mont_mul_l<NL>(u, xy, m, f, ln);
-    mont_mul_l<NL>(v, yz, xz, f, ln);
+    mul(u, xy, m, f, ln);
+    mul(v, yz, xz, f, ln);
     mul_small_l<NL>(w, v, f.b3, f, ln);
     sub_mod_l<NL>(X3, u, w, f, ln);         // xy*m - b3*yz*xz
-    mont_mul_l<NL>(u, n, m, f, ln);
-    mont_mul_l<NL>(v, t0, xz, f, ln);
+    mul(u, n, m, f, ln);
+    mul(v, t0, xz, f, ln);
     mul_small_l<NL>(w, v, 3 * f.b3, f, ln);
     add_mod_l<NL>(Y3, u, w, f, ln);         // n*m + 3b3*t0*xz
-    mont_mul_l<NL>(u, yz, n, f, ln);
-    mont_mul_l<NL>(v, t0, xy, f, ln);
+    mul(u, yz, n, f, ln);
+    mul(v, t0, xy, f, ln);
     mul_small_l<NL>(w, v, 3, f, ln);
     add_mod_l<NL>(Z3, u, w, f, ln);         // yz*n + 3*t0*xy
 }
 
 // P1 += P2, complete projective add (RCB16 algorithm 7, 12 multiplies).
-template <int NL>
+template <int NL, class Mul = CiosMulL<NL>>
 __device__ __forceinline__ void ec_add_l(uint32_t* X1, uint32_t* Y1,
                                          uint32_t* Z1, const uint32_t* X2,
                                          const uint32_t* Y2,
                                          const uint32_t* Z2,
                                          const FieldL<NL>& f,
-                                         const Lanes& ln) {
+                                         const Lanes& ln,
+                                         const Mul& mul = Mul()) {
     constexpr int K = NL / kLanes;
     uint32_t t0[K], t1[K], t2[K], xy[K], yz[K], xz[K], s1[K], s2[K];
-    mont_mul_l<NL>(t0, X1, X2, f, ln);
-    mont_mul_l<NL>(t1, Y1, Y2, f, ln);
-    mont_mul_l<NL>(t2, Z1, Z2, f, ln);
+    mul(t0, X1, X2, f, ln);
+    mul(t1, Y1, Y2, f, ln);
+    mul(t2, Z1, Z2, f, ln);
     add_mod_l<NL>(s1, X1, Y1, f, ln);
     add_mod_l<NL>(s2, X2, Y2, f, ln);
-    mont_mul_l<NL>(xy, s1, s2, f, ln);
+    mul(xy, s1, s2, f, ln);
     sub_mod_l<NL>(xy, xy, t0, f, ln);
     sub_mod_l<NL>(xy, xy, t1, f, ln);
     add_mod_l<NL>(s1, Y1, Z1, f, ln);
     add_mod_l<NL>(s2, Y2, Z2, f, ln);
-    mont_mul_l<NL>(yz, s1, s2, f, ln);
+    mul(yz, s1, s2, f, ln);
     sub_mod_l<NL>(yz, yz, t1, f, ln);
     sub_mod_l<NL>(yz, yz, t2, f, ln);
     add_mod_l<NL>(s1, X1, Z1, f, ln);
     add_mod_l<NL>(s2, X2, Z2, f, ln);
-    mont_mul_l<NL>(xz, s1, s2, f, ln);
+    mul(xz, s1, s2, f, ln);
     sub_mod_l<NL>(xz, xz, t0, f, ln);
     sub_mod_l<NL>(xz, xz, t2, f, ln);
     mul_small_l<NL>(s1, t2, f.b3, f, ln);  // b3*t2
     sub_mod_l<NL>(s2, t1, s1, f, ln);      // m
     add_mod_l<NL>(t2, t1, s1, f, ln);      // n
-    add_tail_l<NL>(X1, Y1, Z1, xy, yz, xz, t0, s2, t2, f, ln);
+    add_tail_l<NL, Mul>(X1, Y1, Z1, xy, yz, xz, t0, s2, t2, f, ln, mul);
 }
 
 // P1 += (X2, Y2, 1), complete mixed add (RCB16 algorithm 8, 11 multiplies).
@@ -425,6 +439,60 @@ __device__ __forceinline__ void select_point_l(uint32_t* X, uint32_t* Y,
         X[k] = keep ? X[k] : X2[k];
         Y[k] = keep ? Y[k] : Y2[k];
         Z[k] = keep ? Z[k] : Z2[k];
+    }
+}
+
+constexpr int kSlotBlock = 32 * kLanes;     // of kernels 1, 2, 4 and 5
+
+// The group of kLanes lanes this thread belongs to, counted over the grid.
+// Groups past the last one (`count`) work on the last one, so every warp
+// stays whole for the lanes' shuffles, and store nothing (`mine` false).
+__device__ __forceinline__ long long group_index(long long count,
+                                                 bool& mine) {
+    const long long g = ((long long)blockIdx.x * blockDim.x + threadIdx.x)
+                        / kLanes;
+    mine = g < count;
+    return mine ? g : count - 1;
+}
+
+unsigned groups_grid(long long groups, int block) {
+    return (unsigned)((groups * kLanes + block - 1) / block);
+}
+
+// One round of RCB16 algorithm 7 for a group of kernel 2, 4 or 5: the
+// accumulator (X : Y : Z) adds row `id` of the projective table (n, 3NL),
+// each point's X, Y, then Z words, where `live`, else the identity
+// (0 : 1 : 0), as the TPU kernels do; algorithm 7 turns the identity into
+// (X*Y : Y*Y : Z*Y), exactly, which rescales the representative.  A warp
+// with a live slot runs the whole add for each of its groups, the empty
+// ones on the identity row; a warp whose slots are all empty runs only
+// those 3 products.  Either way the words are the plain version's.
+template <int NL, class Mul = CiosMulL<NL>>
+__device__ __forceinline__ void proj_round_l(uint32_t* X, uint32_t* Y,
+                                             uint32_t* Z,
+                                             const uint32_t* table, int id,
+                                             bool live, const FieldL<NL>& fl,
+                                             const Lanes& ln,
+                                             const Mul& mul = Mul()) {
+    constexpr int K = NL / kLanes;
+    if (warp_needs(live)) {
+        uint32_t x2[K], y2[K], z2[K];
+        const uint32_t* row = table + (size_t)(live ? id : 0) * (3 * NL)
+                              + ln.j * K;
+#pragma unroll
+        for (int k = 0; k < K; k++) {
+            x2[k] = live ? row[k] : 0u;
+            y2[k] = live ? row[NL + k] : fl.one[k];
+            z2[k] = live ? row[2 * NL + k] : 0u;
+        }
+        ec_add_l<NL, Mul>(X, Y, Z, x2, y2, z2, fl, ln, mul);
+    } else {
+        uint32_t y[K];
+#pragma unroll
+        for (int k = 0; k < K; k++) y[k] = Y[k];
+        mul(X, X, y, fl, ln);
+        mul(Z, Z, y, fl, ln);
+        mul(Y, y, y, fl, ln);
     }
 }
 

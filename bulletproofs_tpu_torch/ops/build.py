@@ -4,8 +4,8 @@ a plain C interface, loaded with `ctypes`.  No PyTorch headers and no
 
 Each source of `SOURCES` is its own library: kernels 1-4 in
 `csrc/ec_kernels.cu`, kernel 5 in `csrc/mxu_kernels.cu`, both including
-`csrc/ec_common.cuh` (and ec_kernels.cu `csrc/ec_lanes.cuh` and
-`csrc/carry.cuh`).  The libraries are built at first CUDA use into
+`csrc/ec_lanes.cuh`, `csrc/ec_common.cuh` and `csrc/carry.cuh`.  The
+libraries are built at first CUDA use into
 `bulletproofs_tpu_torch/_build/` (listed in `.gitignore`), one `nvcc` per
 source, all started together; each is named by a hash of its source, the
 shared header and the flags, so an edited source builds anew and an
@@ -45,7 +45,8 @@ SOURCES = {
         "bp_ec_horner": (_P, _P, _I, _I, _I, _I, _P, _P),
     },
     CSRC / "mxu_kernels.cu": {
-        "bp_bucket_round_add_mxu": (_P, _P, _P, _I, _I, _P, _P, _P),
+        "bp_bucket_round_add_mxu": (_P, _P, _P, _P, _P, _I, _I, _P, _P,
+                                    _P),
     },
 }
 

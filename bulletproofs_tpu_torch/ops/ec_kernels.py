@@ -16,21 +16,20 @@ loops of complete adds that the MSM's combine runs (the JAX package's
 output: `ec_gather_sum` (axis sums and folds), `ec_window_totals` and
 `ec_horner`.
 
-Kernel 5 computes what kernel 4 computes, with the REDC of each Montgomery
-product as int8 Toeplitz dot products; nothing in the JAX package calls
-its TPU kernel, and no path of the port calls it either: chip_smoke.py
-races it against kernel 4.
+Kernel 5 computes what kernel 4 computes, on kernel 4's operands, with the
+REDC of each Montgomery product as byte Toeplitz products on the int8
+tensor cores; nothing in the JAX package calls its TPU kernel, and no path
+of the port calls it either: chip_smoke.py races it against kernel 4.
 
 Forms of the operands.  Points are the port's int64 16-bit limb tensors
 (3, L, ...) or PACKED 32-bit words (3, NL, ...) int32, NL = L/2, the
-kernels' own form (`field.pack32`).  The bucket kernels 1, 2 and 4 and
+kernels' own form (`field.pack32`).  The bucket kernels 1, 2, 4 and 5 and
 kernel 3's sequential forms take packed points only.  The bucket kernels
 gather their rows by point id from a packed point table, affine (n, 2NL)
-for kernel 1 (`affine_rows32`), projective (n, 3NL) for kernels 2 and 4
-(`proj_rows32`), so the MSM packs its table once and keeps its buckets
+for kernel 1 (`affine_rows32`), projective (n, 3NL) for kernels 2, 4 and
+5 (`proj_rows32`), so the MSM packs its table once and keeps its buckets
 packed to the end of the combine.  `ec_add` takes either form and returns
-the one it was given; kernel 5's wrapper takes limb tensors and gathered
-rows.
+the one it was given.
 
 For a tensor on the CPU a wrapper runs the plain version; for a CUDA
 tensor it launches the kernel on PyTorch's current stream, or raises.
@@ -125,27 +124,6 @@ def _same_device(name, *tensors):
 def _require_contiguous(name, *tensors):
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: CUDA operands must be contiguous")
-
-
-def _check_round(buckets, rows, found, ctx):
-    """Kernel 5's operands -> whether the accumulators are packed."""
-    packed = _is_packed(buckets, ctx, "bucket round")
-    if buckets.ndim != 3:
-        raise ValueError(f"buckets must be (3, L or NL, S), got "
-                         f"{tuple(buckets.shape)}")
-    S = buckets.shape[2]
-    if found.shape != (S,) or rows.shape != (S, 3 * ctx.fp.L):
-        raise ValueError(f"rows {tuple(rows.shape)} / found "
-                         f"{tuple(found.shape)} do not fit S = {S}")
-    _same_device("bucket round", buckets, rows, found)
-    return packed
-
-
-def pack_rounds(buckets, rows, found):
-    """Kernel 5's operands in its own layout: 32-bit words (`pack32`),
-    contiguous, and `found` as int32."""
-    return (pack32(buckets, 1).contiguous(), pack32(rows, 1).contiguous(),
-            found.to(torch.int32).contiguous())
 
 
 def affine_rows32(points):
@@ -561,60 +539,94 @@ def bucket_round_add(acc32, table32, ids, found, ctx: CurveCtx):
 
 
 # ---------------------------------------------------------------------------
-# Kernel 5: one bucket round, the REDC products as int8 Toeplitz products
+# Kernel 5: kernel 4's round, the REDC's fixed-operand products on the int8
+# tensor cores
 # ---------------------------------------------------------------------------
 
-def _mxu_words(ctx: CurveCtx):
-    """Kernel 5's tables as uint32 words, the layout of
-    `csrc/mxu_kernels.cu`: the N' and N tables (int8 entries, 4 a word,
-    little-endian), their int32 row constants, then the modulus words."""
-    (tm, cm), (tn, cn) = mxu_tables(ctx.fp)
-    words = lambda t: np.ascontiguousarray(t).view(np.uint8).view("<u4")
+def mxu_in_byte(kt, kp, nl):
+    """Kernel 5's K order: the input byte at k position kp of k-tile kt, or
+    -1 (padding).  Lane j of a group holds its words j*K .. j*K + K - 1
+    (K = nl / 4), word slot 2t in the fragment register of k-tile t that
+    spans kp = 4j .. 4j + 3 (b0) and slot 2t + 1 in the one that spans
+    kp = 16 + 4j .. (b1)."""
+    K = nl // 4
+    half, rest = divmod(kp, 16)
+    lane, byte = divmod(rest, 4)
+    slot = 2 * kt + half
+    return np.where(slot < K, 4 * (lane * K + slot) + byte, -1)
+
+
+def _mxu_fragments(ctx: CurveCtx):
+    """Kernel 5's tables (`csrc/mxu_kernels.cu`) as uint32 words in the
+    PTX ISA's m16n8k32 fragment order: m's table (L8 x L8), then m*N's
+    (2 L8 x L8), the unbiased byte Toeplitz tables of `field.mxu_tables`
+    (entries + 128) at (output byte, input byte `mxu_in_byte`), 0 for
+    padding.  The kernel's mapping: the table is A, blocks (m-tile of 16
+    output bytes in order, k-tile), 32 lanes of 4 words; lane 4g + j holds
+    A's rows g (words 0, 2) and g + 8 (words 1, 3) at columns 4j + b
+    (words 0, 1) and 16 + 4j + b (words 2, 3), byte b of each word."""
     nl = ctx.fp.L // 2
-    return np.concatenate([words(tm).ravel(), words(tn).ravel(),
-                           cm.ravel().view(np.uint32),
-                           cn.ravel().view(np.uint32), _consts(ctx)[:nl]])
+    K = nl // 4
+    k_tiles = (K + 1) // 2
+    lane = np.arange(32)
+    g, j = lane // 4, lane % 4
+    reg = np.arange(4)
+    # (lane, reg, byte): the k position, then the output byte
+    kp = 16 * (reg // 2)[None, :, None] + 4 * j[:, None, None] \
+        + np.arange(4)[None, None, :]
+    blocks = []
+    for (ts, _), m_tiles in zip(mxu_tables(ctx.fp), (K, 2 * K)):
+        table = ts.astype(np.int64) + 128
+        for tile in range(m_tiles):
+            out = 16 * tile + g[:, None, None] + 8 * (reg % 2)[:, None]
+            for kt in range(k_tiles):
+                ins = mxu_in_byte(kt, kp, nl)
+                entry = table[np.broadcast_to(out, kp.shape),
+                              np.maximum(ins, 0)]
+                blocks.append(np.where(ins >= 0, entry, 0).astype(np.uint8))
+    return np.stack(blocks).reshape(-1).view("<u4")
 
 
 _mxu_device = {}
 
 
-def _mxu_tables_on(ctx: CurveCtx, device):
-    """`_mxu_words` on `device`, made once per curve and card."""
+def _mxu_fragments_on(ctx: CurveCtx, device):
+    """`_mxu_fragments` on `device`, made once per curve and card."""
     key = (ctx.cv.name, str(device))
     if key not in _mxu_device:
         _mxu_device[key] = torch.as_tensor(
-            _mxu_words(ctx).view(np.int32), device=device)
+            _mxu_fragments(ctx).view(np.int32), device=device)
     return _mxu_device[key]
 
 
-def bucket_round_add_mxu_plain(buckets, rows, found, ctx: CurveCtx):
-    """Kernel 4's round on limb buckets (3, L, S) and gathered rows
-    (S, 3L) (`_round_add_rows`) with every Montgomery product through
-    `field.mont_mul_mxu` (separated REDC, the fixed-operand halves as
-    Toeplitz products in int64): the same limbs, the function of
-    `ec_pallas._round_kernel_mxu`."""
-    return _round_add_rows(buckets, rows, found, ctx, mul=mont_mul_mxu)
+def bucket_round_add_mxu_plain(acc32, table32, ids, found, ctx: CurveCtx):
+    """Kernel 4's round (`bucket_round_add_plain`, same operands) with every
+    Montgomery product through `field.mont_mul_mxu` (separated REDC, the
+    fixed-operand halves as byte Toeplitz products): the same words, the
+    function of `ec_pallas._round_kernel_mxu`."""
+    return pack32(_round_add_rows(unpack32(acc32, 1),
+                                  _gather_rows(table32, ids, found), found,
+                                  ctx, mul=mont_mul_mxu), 1)
 
 
-def bucket_round_add_mxu32(acc32, rows32, found32, ctx: CurveCtx):
-    """Kernel 5 on operands already packed by `pack_rounds`: acc32
-    (3, NL, S) is updated in place by one round."""
-    _require_card("bucket_round_add_mxu", ctx, acc32, rows32, found32)
-    tables = _mxu_tables_on(ctx, acc32.device)
+def bucket_round_add_mxu32(out32, acc32, table32, ids, found,
+                           ctx: CurveCtx):
+    """Kernel 5 on packed CUDA operands, unchecked: writes `out32`
+    (3, NL, S), which may be `acc32` itself."""
+    _require_card("bucket_round_add_mxu", ctx, out32, acc32, table32, ids,
+                  found)
+    frags = _mxu_fragments_on(ctx, acc32.device)
     _launch("bp_bucket_round_add_mxu", "bucket_round_add_mxu",
-            acc32.data_ptr(), rows32.data_ptr(), found32.data_ptr(),
-            found32.shape[0], ctx.fp.L // 2, _consts(ctx).ctypes.data,
-            tables.data_ptr())
+            out32.data_ptr(), acc32.data_ptr(), table32.data_ptr(),
+            ids.data_ptr(), found.data_ptr(), found.shape[0], ctx.fp.L // 2,
+            _consts(ctx).ctypes.data, frags.data_ptr())
 
 
-def bucket_round_add_mxu(buckets, rows, found, ctx: CurveCtx):
-    """Kernel 5 (`bp_bucket_round_add_mxu`); see
-    `bucket_round_add_mxu_plain`."""
-    if _check_round(buckets, rows, found, ctx):
-        raise ValueError("bucket_round_add_mxu takes limb tensors")
-    if not _on_card(buckets, "bucket_round_add_mxu", ctx):
-        return bucket_round_add_mxu_plain(buckets, rows, found, ctx)
-    acc32, rows32, found32 = pack_rounds(buckets, rows, found)
-    bucket_round_add_mxu32(acc32, rows32, found32, ctx)
-    return unpack32(acc32, 1)
+def bucket_round_add_mxu(acc32, table32, ids, found, ctx: CurveCtx):
+    """Kernel 5 (`bp_bucket_round_add_mxu`): kernel 4's function on kernel
+    4's operands; see `bucket_round_add_mxu_plain`."""
+    name = "bucket_round_add_mxu"
+    _check_buckets(name, acc32, table32, ids, found, ctx, 3, rounds=False)
+    return _run_buckets(name, bucket_round_add_mxu_plain,
+                        bucket_round_add_mxu32, acc32, table32, ids, found,
+                        ctx)

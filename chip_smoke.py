@@ -9,7 +9,8 @@ bits, n = 2048) of BLS12-381 G1 end to end.
 Phases, each printing one JSON line with its seconds:
   0 device   the card's name and power limit (nvidia-smi);
   1 build    nvcc of csrc/ec_kernels.cu and csrc/mxu_kernels.cu, in
-             parallel, into ctypes libraries;
+             parallel, into ctypes libraries; ptxas's registers, stack
+             and spills; kernel 5's SASS holds IMMA and no IDP.4A;
   2 kernels  each kernel against its plain version at the width each path
              gives it (bit-exact; kernel 5 also against kernel 4): the
              bucket kernels from a packed point table of the path's size
@@ -47,8 +48,7 @@ Phases, each printing one JSON line with its seconds:
   7 mxu_race one per-round bucket pass of the IPA MSM (its rounds over
              S slots) through kernel 5 and through kernel 4, in turns, with
              microseconds per round and the buckets bit-exact at the end
-             (kernel 4 reads its rows by id from the packed table, kernel 5
-             is given the rows gathered from it by the same ids);
+             (both read their rows by id from the packed table);
   8 launches the launch counts of each path (phases 3-4, 5, 6, 7), kernel
              3's also by form, each kernel of a path (and each form of
              kernel 3 the path runs, `PATHS`) required > 0 there,
@@ -81,7 +81,7 @@ from bulletproofs_tpu_torch.ops.ec import (CurveCtx, content_digest,
                                            to_device_points_affine,
                                            to_device_scalars)
 from bulletproofs_tpu_torch.models import bound_check
-from bulletproofs_tpu_torch.ops.field import pack32, unpack32
+from bulletproofs_tpu_torch.ops.field import pack32
 from bulletproofs_tpu_torch.ops.ec_host import G1, msm_host
 from bulletproofs_tpu_torch.ops.field_host import Scalar, inner_product
 from bulletproofs_tpu_torch.utils.errors import VerificationError
@@ -92,6 +92,9 @@ from bulletproofs_tpu_torch.utils.errors import VerificationError
 # lanes per SM, so 67e12 / 2 / 2 IMAD per second.
 HBM_BYTES_PER_S = 3.35e12
 IMAD_PER_S = 67e12 / 4
+# Dense int8 tensor-core rate of the same data sheet: 1979e12 operations a
+# second, a multiply-add counted as 2.
+INT8_MAC_PER_S = 1979e12 / 2
 
 KERNEL_SOURCE = "bulletproofs_tpu_torch/csrc/ec_kernels.cu"
 REPLACES = {
@@ -174,6 +177,37 @@ def bound(n_bytes, n_imad):
                                  "operations")
 
 
+def mxu_bound(ctx, found, n_bytes):
+    """Kernel 5's own minimum for one round over `found` (S,): the larger
+    of its bytes over the memory rate, its schoolbook IMADs (T = a*b: NL^2
+    multiply-adds a product, a low and a high IMAD each; 12 products a live
+    slot, 3 an empty one) over the IMAD rate, and the int8 multiply-adds of
+    its REDC's Toeplitz products (L8 x L8 for m, 2 L8 x L8 for m*N,
+    L8 = 4 NL bytes, no padding) over the dense int8 rate.  Beside it, not
+    in the bound: the mma the kernel issues (a warp of 8 slots runs 12
+    products unless all 8 are empty, then 3; the k-tiles padded to 32)."""
+    nl = ctx.fp.L // 2
+    K, L8 = nl // 4, 4 * nl
+    mma_per_product = (K + 1) // 2 * 3 * K     # k-tiles x (K + 2K) m-tiles
+    live = int(found.sum())
+    slots = found.numel()
+    products = live * 12 + (slots - live) * 3
+    n_imad = products * 2 * nl * nl
+    n_mac = products * 3 * L8 * L8
+    warps = torch.nn.functional.pad(found, (0, -slots % 8)).reshape(-1, 8)
+    busy = int(warps.any(1).sum())
+    n_mma = (busy * 12 + (warps.shape[0] - busy) * 3) * mma_per_product
+    times = {"bytes": n_bytes / HBM_BYTES_PER_S * 1e3,
+             "imad": n_imad / IMAD_PER_S * 1e3,
+             "int8_tensor": n_mac / INT8_MAC_PER_S * 1e3}
+    by = max(times, key=times.get)
+    return {"mxu_bound_ms": times[by], "mxu_bound_by": by,
+            "mxu_bound_parts_ms": times, "mxu_int8_macs": n_mac,
+            "mxu_mma_issued": n_mma,
+            "mxu_rate_source": "NVIDIA H100 SXM data sheet: 3.35 TB/s, "
+                               "67 TFLOP/s fp32, 1979 TOPS int8 dense"}
+
+
 # ---------------------------------------------------------------------------
 # Phases
 # ---------------------------------------------------------------------------
@@ -192,13 +226,34 @@ def phase_device():
     return name, smi
 
 
+def mxu_sass():
+    """Kernel 5's instructions by `cuobjdump -sass` of its library: per
+    instantiation the count of tensor-core IMMA and of IDP (IDP.4A, the
+    dot products of its earlier form).  It must run on IMMA alone."""
+    lib = build.library_path(build.CSRC / "mxu_kernels.cu")
+    cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    counts = {}
+    for func in sass.split("Function : ")[1:]:
+        name = func.split(None, 1)[0]
+        if "bucket_round_add_mxu_kernel" in name:
+            counts[name] = {op: func.count(op + ".")
+                            for op in ("IMMA", "IDP")}
+    if not counts or any(c["IMMA"] == 0 or c["IDP"] for c in
+                         counts.values()):
+        raise AssertionError(f"kernel 5's SASS: {counts}")
+    return counts
+
+
 def phase_build():
     t0 = time.time()
     reports = build.build()
     build.load()
     ptxas = {path.name: build.ptxas_summary(report)
              for path, report in reports.items()}
-    emit({"phase": "build", "ptxas": ptxas, "seconds": time.time() - t0})
+    emit({"phase": "build", "ptxas": ptxas, "mxu_sass": mxu_sass(),
+          "seconds": time.time() - t0})
 
 
 def _random_points(rnd, m, cv):
@@ -231,10 +286,12 @@ def phase_kernels(device, n, seed, reps=5, r1cs_msm_n=4098):
     """Each kernel against its plain version at the width of its path: the
     chunked kernels at the MSM's S = W*B slots of `window_plan(dup=True)`
     at c = pick_window(n) and R_c = EC_CHUNK rounds, kernel 1 also at the
-    IPA MSM's slots, kernel 4 at the IPA's; each bucket kernel gathers its
-    rows from a packed table of its path's size (kernel 1: n rows, 2n + 2
-    for the IPA; kernel 2: the pre-reduced table's W*n; kernel 4: 2n + 2)
-    by a random slot grid (`slot_grid`); kernel 3 pairwise at n + 3 points
+    IPA MSM's slots, kernels 4 and 5 at the IPA's on the same operands;
+    each bucket kernel gathers its rows from a packed table of its path's
+    size (kernel 1: n rows, 2n + 2 for the IPA; kernel 2: the pre-reduced
+    table's W*n; kernels 4 and 5: 2n + 2) by a random slot grid
+    (`slot_grid`); kernel 5's record also has its own minimum
+    (`mxu_bound`); kernel 3 pairwise at n + 3 points
     and its sequential forms at the combine's shapes of the range proof's
     two-set MSM (r1cs_msm_n points) and of the n-point MSM.  Half the
     accumulators start at the identity.  Returns per-kernel records."""
@@ -304,9 +361,6 @@ def phase_kernels(device, n, seed, reps=5, r1cs_msm_n=4098):
     ids4, found4 = (x[0] for x in slot_grid(1, S_ipa, 2 * n + 2))
     buckets_round = buckets_ipa.clone()
     buckets_round[:, :, 0] = table_ipa[ids4[0]].reshape(3, -1)  # P + P
-    # kernel 5's operands: limb accumulators, the rows gathered by ids4
-    rows_ipa = unpack32(table_ipa[ids4.long()], 1)
-    buckets_round_limbs = unpack32(buckets_round, 1)
 
     n_add = n + 3                         # ragged: not a multiple of a tile
     ia = torch.randint(0, m, (n_add,), generator=gen).to(device)
@@ -339,12 +393,6 @@ def phase_kernels(device, n, seed, reps=5, r1cs_msm_n=4098):
 
     def packed(x):
         return pack32(x, 1).contiguous()
-
-    def bare_kernel5(args):
-        """Kernel 5's bare launch, updating its packed accumulators in
-        place, on operands packed beforehand."""
-        ops = ek.pack_rounds(*args)
-        return lambda: ek.bucket_round_add_mxu32(*ops, ctx)
 
     def bare_table(launch):
         """A bucket kernel's bare launch from its table, into a new
@@ -387,12 +435,14 @@ def phase_kernels(device, n, seed, reps=5, r1cs_msm_n=4098):
          bare_table(ek.bucket_round_add32),
          rounds_work(found4, 3 * nl, 3, ids_read=True),
          {"S": S_ipa, "table_rows": 2 * n + 2}),
-        # kernel 5: the same round on the same inputs, so kernel 4's bound
-        # less the ids
+        # kernel 5: the same round on the same operands, so kernel 4's
+        # bound; its own minimum is `mxu_bound` below
         ("bucket_round_add_mxu", ek.bucket_round_add_mxu,
          ek.bucket_round_add_mxu_plain,
-         (buckets_round_limbs, rows_ipa, found4), bare_kernel5,
-         rounds_work(found4, 3 * nl, 3), {"S": S_ipa}),
+         (buckets_round, table_ipa, ids4, found4),
+         bare_table(ek.bucket_round_add_mxu32),
+         rounds_work(found4, 3 * nl, 3, ids_read=True),
+         {"S": S_ipa, "table_rows": 2 * n + 2}),
     ]
     cases += form_cases(ctx, proj, gen, device, [
         ("r1cs", combine_shapes(r1cs_msm_n, 2)),
@@ -432,14 +482,19 @@ def phase_kernels(device, n, seed, reps=5, r1cs_msm_n=4098):
         else:
             records[name] = {**rec, "shape": shape}
 
-    # kernel 5 computes kernel 4's function: the same limbs
+    # kernel 5 computes kernel 4's function: the same words
     if not torch.equal(
-            pack32(ek.bucket_round_add_mxu(buckets_round_limbs, rows_ipa,
-                                           found4, ctx), 1),
+            ek.bucket_round_add_mxu(buckets_round, table_ipa, ids4, found4,
+                                    ctx),
             ek.bucket_round_add(buckets_round, table_ipa, ids4, found4,
                                 ctx)):
         raise AssertionError("bucket_round_add_mxu differs from "
                              "bucket_round_add")
+    k5 = records["bucket_round_add_mxu"]
+    k5.update(mxu_bound(ctx, found4, rounds_work(found4, 3 * nl, 3,
+                                                 ids_read=True)[0]))
+    emit({"phase": "kernel5_bound", **{k: v for k, v in k5.items()
+                                        if k.startswith("mxu_")}})
 
     # independent spot check of the batched add against host ints
     picks = [0, 1, 2, 3, n_add - 1]
@@ -892,10 +947,9 @@ def _ipa_round_schedule(n, seed, device):
 def phase_mxu_race(device, n, seed):
     """One per-round bucket pass of the IPA MSM through kernel 5 and kernel
     4, in turns (4, 5, 5, 4): microseconds per round of each, and the
-    final buckets bit-exact.  Kernel 4 reads its rows by id from the
-    packed table; kernel 5 is given the rows gathered from it by the same
-    ids, on the card packed beforehand, and there the bare launches are
-    timed; on the CPU the wrappers run their plain versions."""
+    final buckets bit-exact.  Both read their rows by id from the packed
+    table; on the card the bare launches are timed, on the CPU the
+    wrappers run their plain versions."""
     t0 = time.time()
     device = torch.device(device)
     ctx = CurveCtx(BLS381)
@@ -903,34 +957,22 @@ def phase_mxu_race(device, n, seed):
     R, S = found.shape
     ident = ek.packed_identity(ctx, (S,), device)
     on_card = device.type == "cuda"
-    if on_card:
-        rows32 = [table32[ids[r].long()] for r in range(R)]
 
-    def run_kernel4():
-        acc = ident.clone()
-        for r in range(R):
-            if on_card:
-                ek.bucket_round_add32(acc, acc, table32, ids[r], found[r],
-                                      ctx)
-            else:
-                acc = ek.bucket_round_add(acc, table32, ids[r], found[r],
-                                          ctx)
-        return acc
-
-    def run_kernel5():
-        if on_card:
+    def runner(wrapper, bare):
+        def run():
             acc = ident.clone()
             for r in range(R):
-                ek.bucket_round_add_mxu32(acc, rows32[r], found[r], ctx)
+                if on_card:
+                    bare(acc, acc, table32, ids[r], found[r], ctx)
+                else:
+                    acc = wrapper(acc, table32, ids[r], found[r], ctx)
             return acc
-        acc = unpack32(ident, 1)
-        for r in range(R):
-            acc = ek.bucket_round_add_mxu(
-                acc, unpack32(table32[ids[r].long()], 1), found[r], ctx)
-        return pack32(acc, 1)
+        return run
 
-    kernels = {"bucket_round_add": run_kernel4,
-               "bucket_round_add_mxu": run_kernel5}
+    kernels = {"bucket_round_add": runner(ek.bucket_round_add,
+                                          ek.bucket_round_add32),
+               "bucket_round_add_mxu": runner(ek.bucket_round_add_mxu,
+                                              ek.bucket_round_add_mxu32)}
     us, out = {}, {}
     for name in ("bucket_round_add", "bucket_round_add_mxu",
                  "bucket_round_add_mxu", "bucket_round_add"):
@@ -945,9 +987,6 @@ def phase_mxu_race(device, n, seed):
           "us_per_round": {k: sum(v) / len(v) for k, v in us.items()},
           "us_per_round_turns": us, "timed": "bare launches" if on_card
           else "plain versions (CPU)", "buckets_identical": True,
-          "tpu_v5e_context_only": {
-              "bucket_round_add_pallas_mxu_us": 662,
-              "bucket_round_add_pallas_us": 512, "source": "NOTES.md:408"},
           "seconds": time.time() - t0})
 
 

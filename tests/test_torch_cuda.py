@@ -1,5 +1,5 @@
 """The port's CUDA kernels, MSM, IPA and R1CS proofs on the card: each
-kernel against its plain PyTorch version, limb for limb (kernel 5 also
+kernel against its plain PyTorch version, word for word (kernel 5 also
 against kernel 4), the MSM against exact-int host sums, and IPA and range
 proofs against the port's own CPU runs, byte for byte.  Every test is
 marked `cuda` and skips without a card.
@@ -36,8 +36,8 @@ def cuda_device():
 def _round_inputs(cv, seed, S, R_c, width, device, n_rows=16):
     """Accumulators (half identity), ~70% occupancy and point ids (R_c, S)
     int32 over a packed table of n_rows rows (16 points repeated; affine
-    (X, Y) rows for width 2, kernel 1's, projective for 3, kernels 2 and
-    4's), slot 0 doubling in round 1 -> (ctx, acc, found, proj, table32,
+    (X, Y) rows for width 2, kernel 1's, projective for 3, kernels 2, 4
+    and 5's), slot 0 doubling in round 1 -> (ctx, acc, found, proj, table32,
     ids); proj are the 16 projective points."""
     ctx = E.CurveCtx(cv)
     rnd = random.Random(seed)
@@ -66,6 +66,8 @@ _BUCKET_KERNELS = {
              ek.bucket_rounds_proj_plain, ek.bucket_rounds_proj32),
     "round": ("bucket_round_add", ek.bucket_round_add,
               ek.bucket_round_add_plain, ek.bucket_round_add32),
+    "mxu": ("bucket_round_add_mxu", ek.bucket_round_add_mxu,
+            ek.bucket_round_add_mxu_plain, ek.bucket_round_add_mxu32),
 }
 
 
@@ -107,14 +109,14 @@ def test_kernel_matches_plain_on_card(kernel, curve, cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("curve", sorted(CURVES))
-@pytest.mark.parametrize("kernel", ["proj", "round"])
+@pytest.mark.parametrize("kernel", ["proj", "round", "mxu"])
 def test_table_kernel_edge_slots_on_card(kernel, curve, cuda_device):
-    """Kernels 2 and 4 from a packed table of 4098 rows, S = 1000 slots
+    """Kernels 2, 4 and 5 from a packed table of 4098 rows, S = 1000 slots
     (125 warps of 8 groups, the last block partly past S): a warp whose
     slots are all empty (it takes the identity's 3 products), a warp with
     one live slot (its empty slots add the identity row), the table's last
-    row read, and for kernel 4 a slot doubling (accumulator == row):
-    bit-exact against the plain version, one launch a call."""
+    row read, and for kernels 4 and 5 a slot doubling (accumulator ==
+    row): bit-exact against the plain version, one launch a call."""
     S, n_rows = 1000, 4098
     R_c = 4 if kernel == "proj" else 1
     ctx, acc, found, _, table32, ids = _round_inputs(
@@ -125,7 +127,7 @@ def test_table_kernel_edge_slots_on_card(kernel, curve, cuda_device):
     ids[:, -1] = n_rows - 1
     found[:, -1] = 1
     acc32 = pack32(acc, 1)
-    if kernel == "round":
+    if kernel != "proj":
         ids, found = ids[0], found[0]
         acc32[:, :, 2] = table32[ids[2]].reshape(3, -1)     # P + P
         found[2] = 1
@@ -297,27 +299,29 @@ def test_bucket_round_add_matches_plain_on_card(curve, cuda_device):
 @pytest.mark.parametrize("curve", sorted(CURVES))
 def test_bucket_round_add_mxu_matches_plain_and_kernel4_on_card(
         curve, cuda_device):
-    """Kernel 5 at S = 16896 on the rows kernel 4 reads from its table by
-    the same ids: bit-exact against its plain version and against kernel
-    4, wrapped and bare."""
+    """Kernel 5 at S = 16896 on kernel 4's operands (a packed table of 4098
+    rows, the same ids): bit-exact against its plain version and against
+    kernel 4, wrapped and bare, in place too."""
     S = 16896
     ctx, acc, found, _, table32, ids = _round_inputs(
         CURVES[curve], 13, S, 1, 3, cuda_device, n_rows=4098)
     ids, found = ids[0], found[0]
-    rows = unpack32(table32[ids.long()], 1)
-    acc[:, :, -1] = rows[-1].reshape(3, ctx.fp.L)          # P + P
+    acc32 = pack32(acc, 1)
+    acc32[:, :, -1] = table32[ids[-1]].reshape(3, -1)      # P + P
     found[-1] = 1
     ek.reset_launches()
-    got = ek.bucket_round_add_mxu(acc, rows, found, ctx)
-    k4 = ek.bucket_round_add(pack32(acc, 1), table32, ids, found, ctx)
+    got = ek.bucket_round_add_mxu(acc32, table32, ids, found, ctx)
+    k4 = ek.bucket_round_add(acc32, table32, ids, found, ctx)
     torch.cuda.synchronize()
-    assert torch.equal(pack32(got, 1), k4)
-    assert torch.equal(got, ek.bucket_round_add_mxu_plain(acc, rows, found,
-                                                          ctx))
-    bare, rows32, found32 = ek.pack_rounds(acc, rows, found)
-    ek.bucket_round_add_mxu32(bare, rows32, found32, ctx)
-    assert torch.equal(bare, k4)
-    assert ek.launches["bucket_round_add_mxu"] == 2
+    assert torch.equal(got, k4)
+    assert torch.equal(got, ek.bucket_round_add_mxu_plain(acc32, table32,
+                                                          ids, found, ctx))
+    out = torch.empty_like(acc32)
+    ek.bucket_round_add_mxu32(out, acc32, table32, ids, found, ctx)
+    ek.bucket_round_add_mxu32(acc32, acc32, table32, ids, found, ctx)
+    assert torch.equal(out, k4)
+    assert torch.equal(acc32, k4)
+    assert ek.launches["bucket_round_add_mxu"] == 3
 
 
 @pytest.mark.cuda

@@ -188,19 +188,19 @@ def test_wrappers_reject_mismatched_shapes():
         ek.ec_horner(acc32[:, :, :5], 2, 4, ctx)
 
 
-@pytest.mark.parametrize("kernel", ["proj", "round"])
+@pytest.mark.parametrize("kernel", ["proj", "round", "mxu"])
 def test_table_wrappers_reject_bad_tables(kernel):
-    """Kernels 2 and 4 read rows by id without bounds, from a packed
+    """Kernels 2, 4 and 5 read rows by id without bounds, from a packed
     projective table: their wrappers refuse a table of short rows, an
     affine (2NL-wide) or int64 one, limb accumulators, and ids or found of
-    the other kernel's form or of int64."""
+    the other kernels' form or of int64."""
     ctx = E.CurveCtx(BLS381)
     L = ctx.fp.L
     acc32 = pack32(torch.zeros((3, L, 8), dtype=torch.int64), 1)
     table32 = torch.zeros((16, 3 * L // 2), dtype=torch.int32)
     ids = torch.zeros((2, 8), dtype=torch.int32)
-    wrapper = ek.bucket_rounds_proj if kernel == "proj" \
-        else ek.bucket_round_add
+    wrapper = {"proj": ek.bucket_rounds_proj, "round": ek.bucket_round_add,
+               "mxu": ek.bucket_round_add_mxu}[kernel]
     good, other = (ids, ids[0]) if kernel == "proj" else (ids[0], ids)
     assert wrapper(acc32, table32, good, good, ctx).shape == acc32.shape
     for bad in (table32[:, :-1], table32[:, :L], table32.long(),
@@ -231,19 +231,19 @@ def _rows_loop(acc, rows, found, ctx):
 
 
 @pytest.mark.parametrize("curve", sorted(CURVES))
-@pytest.mark.parametrize("kernel", ["proj", "round"])
+@pytest.mark.parametrize("kernel", ["proj", "round", "round_mxu"])
 def test_table_plain_versions_match_row_loops(kernel, curve):
-    """Kernels 2 and 4's plain versions, fed the packed projective table
-    and the point ids, equal the old loop on the rows gathered from the
-    limb table: 96 slots (12 warps of 8 groups), ~70% occupied, a warp
-    whose slots are all empty, a warp with one live slot, the table's last
-    row read, a slot doubling, and out-of-range ids in empty slots (not
-    read)."""
+    """Kernels 2, 4 and 5's plain versions, fed the packed projective
+    table and the point ids, equal the old loop on the rows gathered from
+    the limb table (kernel 5's also kernel 4's plain version): 96 slots (12
+    warps of 8 groups), ~70% occupied, a warp whose slots are all empty, a
+    warp with one live slot, the table's last row read, a slot doubling,
+    and out-of-range ids in empty slots (not read)."""
     cv, jcv = CURVES[curve]
     S = 96
     acc, _, found, rows_all, pid = _round_inputs(jcv, 37, S, 3, 3,
                                                  with_table=True)
-    if kernel == "round":                             # one round
+    if kernel != "proj":                              # one round
         found, pid = found[:1], pid[:1]
     found[:, 8:16] = 0                                # an empty warp
     found[:, 16:24] = 0
@@ -265,6 +265,11 @@ def test_table_plain_versions_match_row_loops(kernel, curve):
         args = args[:2] + (args[2][0], args[3][0])
         got = ek.bucket_round_add(*args, ctx)
         assert torch.equal(got, ek.bucket_round_add_plain(*args, ctx))
+    elif kernel == "round_mxu":
+        args = args[:2] + (args[2][0], args[3][0])
+        got = ek.bucket_round_add_mxu(*args, ctx)
+        assert torch.equal(got, ek.bucket_round_add_mxu_plain(*args, ctx))
+        assert torch.equal(got, ek.bucket_round_add_plain(*args, ctx))
     else:
         got = ek.bucket_rounds_proj(*args, ctx)
         assert torch.equal(got, ek.bucket_rounds_proj_plain(*args, ctx))
@@ -280,12 +285,9 @@ def test_packed_launches_refuse_cpu_tensors(kernel):
     ctx = E.CurveCtx(BLS381)
     L = ctx.fp.L
     width = 2 if kernel == "mixed" else 3
-    acc32, rows32, found32 = ek.pack_rounds(
-        torch.zeros((3, L, 8), dtype=torch.int64),
-        torch.zeros((16, width * L), dtype=torch.int64),
-        torch.ones((2, 8), dtype=torch.int32))
-    assert acc32.shape == (3, L // 2, 8)
-    assert rows32.shape == (16, width * L // 2)
+    acc32 = pack32(torch.zeros((3, L, 8), dtype=torch.int64), 1)
+    rows32 = torch.zeros((16, width * L // 2), dtype=torch.int32)
+    found32 = torch.ones((2, 8), dtype=torch.int32)
     ek.reset_launches()
     with pytest.raises(ValueError):
         if kernel == "ec_add":
@@ -294,7 +296,8 @@ def test_packed_launches_refuse_cpu_tensors(kernel):
             ek.bucket_round_add32(acc32.clone(), acc32, rows32, found32[0],
                                   found32[0], ctx)
         elif kernel == "round_mxu":
-            ek.bucket_round_add_mxu32(acc32, rows32, found32[0], ctx)
+            ek.bucket_round_add_mxu32(acc32.clone(), acc32, rows32,
+                                      found32[0], found32[0], ctx)
         elif kernel == "mixed":
             ek.bucket_rounds_mixed32(acc32.clone(), acc32, rows32, found32,
                                      found32, ctx)
@@ -358,48 +361,146 @@ def test_mont_mul_mxu_matches_field_jax_and_cios(curve):
 
 
 def test_bucket_round_add_mxu_plain_matches_kernel4_plain():
-    """S = 512 slots: half the accumulators at the identity, ~70% occupied,
-    one slot doubling; the kernel-5 wrapper on the CPU runs its plain
-    version and counts no launch."""
+    """S = 512 slots on kernel 4's operands (the packed table, the point
+    ids): half the accumulators at the identity, ~70% occupied, one slot
+    doubling; the kernel-5 wrapper on the CPU runs its plain version and
+    counts no launch."""
     S = 512
-    acc, rows, found, rows_all, pid = _round_inputs(JBLS381, 23, S, 2, 3,
-                                                    with_table=True)
-    rows = rows[:S]                                    # round 0: pid[0]
+    acc, _, found, rows_all, pid = _round_inputs(JBLS381, 23, S, 2, 3,
+                                                 with_table=True)
     L = JBLS381.fp.n_limbs
-    acc[:, :, -1] = rows[-1].reshape(3, L)             # P + P
+    acc[:, :, -1] = rows_all[pid[0, -1]].reshape(3, L)  # P + P
     found[0, -1] = 1
     ctx = E.CurveCtx(BLS381)
-    acc_t = E.from_jax_points(acc, "cpu")
-    found_t = torch.as_tensor(found[0])
-    args = (acc_t, torch.as_tensor(rows.astype(np.int64)), found_t, ctx)
+    args = (pack32(E.from_jax_points(acc, "cpu"), 1), _table32(rows_all),
+            _ids(pid[0]), torch.as_tensor(found[0]), ctx)
     ek.reset_launches()
     got = ek.bucket_round_add_mxu(*args)
+    assert got.dtype == torch.int32
     assert torch.equal(got, ek.bucket_round_add_mxu_plain(*args))
-    k4 = ek.bucket_round_add(pack32(acc_t, 1), _table32(rows_all),
-                             _ids(pid[0]), found_t, ctx)
-    assert torch.equal(pack32(got, 1), k4)
+    assert torch.equal(got, ek.bucket_round_add(*args))
     assert ek.launches == {k: 0 for k in ek.launches}
 
 
-def test_mxu_table_words_layout():
-    """The packed words the CUDA kernel reads: entry 4w + j of a table row
-    in byte j of word w, then the row constants and the modulus."""
-    ctx = E.CurveCtx(BN254)
-    nl = ctx.fp.L // 2
+@pytest.mark.parametrize("curve", sorted(CURVES))
+def test_mxu_table_words_layout(curve):
+    """The A fragments the CUDA kernel reads: m's blocks, then m*N's, each
+    (m-tile, k-tile) block 32 lanes of 4 words, lane 4g + j holding A's
+    rows g (words 0, 2) and g + 8 (words 1, 3) at columns 4j + b (words 0,
+    1) and 16 + 4j + b (words 2, 3), byte b of a word (the PTX ISA's
+    m16n8k32 A fragment); A's row r of m-tile mt is output byte 16 mt + r
+    and its column kp the input byte `mxu_in_byte(kt, kp)`, which gives
+    every input byte one column, in the words of the lane that holds it."""
     from bulletproofs_tpu_torch.ops import field as F
-    (tm, cm), (tn, cn) = F.mxu_tables(ctx.fp)
-    w = ek._mxu_words(ctx)
-    assert w.dtype == np.uint32 and w.shape == (12 * nl * nl + 13 * nl,)
-    k = 4 * nl * nl
-    np.testing.assert_array_equal(w[:k].view(np.int8).reshape(tm.shape), tm)
-    np.testing.assert_array_equal(
-        w[k:3 * k].view(np.int8).reshape(tn.shape), tn)
-    np.testing.assert_array_equal(w[3 * k:3 * k + 4 * nl].view(np.int32),
-                                  cm[:, 0])
-    np.testing.assert_array_equal(
-        w[3 * k + 4 * nl:3 * k + 12 * nl].view(np.int32), cn[:, 0])
-    assert sum(int(x) << (32 * i) for i, x in
-               enumerate(w[-nl:])) == BN254.p
+    cv, _ = CURVES[curve]
+    ctx = E.CurveCtx(cv)
+    nl = ctx.fp.L // 2
+    K, L8 = nl // 4, 4 * nl
+    k_tiles = (K + 1) // 2
+    w = ek._mxu_fragments(ctx)
+    assert w.dtype == np.uint32
+    assert w.shape == (k_tiles * 6 * K * 64,)
+    frag = w.view(np.uint8).reshape(-1, 32, 4, 4)     # block, lane, reg, b
+    ins = [ek.mxu_in_byte(kt, kp, nl) for kt in range(k_tiles)
+           for kp in range(32)]
+    assert sorted(i for i in ins if i >= 0) == list(range(L8))
+    for kt in range(k_tiles):
+        for kp in range(32):
+            i = ek.mxu_in_byte(kt, kp, nl)
+            assert i < 0 or i // 4 // K == kp % 16 // 4   # lane j's words
+    block = 0
+    for (ts, _), m_tiles in zip(F.mxu_tables(ctx.fp), (K, 2 * K)):
+        table = ts.astype(np.int64) + 128
+        assert table.shape[0] == 16 * m_tiles
+        for mt in range(m_tiles):
+            for kt in range(k_tiles):
+                A = np.zeros((16, 32), np.int64)
+                for lane in range(32):
+                    g, j = divmod(lane, 4)
+                    for reg in range(4):
+                        row, col = g + 8 * (reg % 2), 16 * (reg // 2) + 4 * j
+                        A[row, col:col + 4] = frag[block, lane, reg]
+                for kp in range(32):
+                    i = ek.mxu_in_byte(kt, kp, nl)
+                    want = table[16 * mt:16 * mt + 16, max(i, 0)]
+                    np.testing.assert_array_equal(A[:, kp],
+                                                  want if i >= 0 else 0)
+                block += 1
+    assert block == frag.shape[0]
+
+
+def _mma_m16n8k32(a_regs, b_regs):
+    """One mma.sync.m16n8k32 on unsigned bytes, from the PTX ISA's fragment
+    tables: a_regs (32, 4) and b_regs (32, 2) uint32 per lane -> D's
+    registers (32, 4) int64.  A: row g (lane // 4) in a0 and a2, g + 8 in
+    a1 and a3; columns 4j + i (a0, a1) and 16 + 4j + i (a2, a3) for byte i,
+    j = lane % 4.  B: rows 4j + i (b0) and 16 + 4j + i (b1), column g.
+    D: row g (d0, d1) and g + 8 (d2, d3), columns 2j and 2j + 1."""
+    A = np.zeros((16, 32), np.int64)
+    B = np.zeros((32, 8), np.int64)
+    byte = lambda v, i: (int(v) >> (8 * i)) & 0xFF
+    for lane in range(32):
+        g, j = divmod(lane, 4)
+        for i in range(4):
+            A[g, 4 * j + i] = byte(a_regs[lane, 0], i)
+            A[g + 8, 4 * j + i] = byte(a_regs[lane, 1], i)
+            A[g, 16 + 4 * j + i] = byte(a_regs[lane, 2], i)
+            A[g + 8, 16 + 4 * j + i] = byte(a_regs[lane, 3], i)
+            B[4 * j + i, g] = byte(b_regs[lane, 0], i)
+            B[16 + 4 * j + i, g] = byte(b_regs[lane, 1], i)
+    D = A @ B
+    return np.array([[D[l // 4, 2 * (l % 4)], D[l // 4, 2 * (l % 4) + 1],
+                      D[l // 4 + 8, 2 * (l % 4)],
+                      D[l // 4 + 8, 2 * (l % 4) + 1]] for l in range(32)])
+
+
+@pytest.mark.parametrize("curve", sorted(CURVES))
+def test_mxu_fragments_reproduce_toeplitz_products(curve):
+    """The kernel's two REDC products emulated in numpy over the
+    host-packed words: 8 slots of seeded byte vectors x (a warp's 8
+    groups), lane j of group g holding words j*K .. j*K + K - 1 of slot
+    g's x, slot 2t of them in the register of k-tile t that spans k
+    positions 4j .. 4j + 3, slot 2t + 1 in the one that spans 16 + 4j ..
+    They are B's b0, b1, the table A; each m-tile's D goes to slot rows in
+    shared memory, (row 2j, 16 mt + g) for d0, (2j + 1, 16 mt + g) for d1,
+    8 columns on for d2, d3, and each slot reads its row in byte order.
+    Every slot's columns are `field.mxu_tables`' T @ x, for m's table and
+    m*N's."""
+    from bulletproofs_tpu_torch.ops import field as F
+    cv, _ = CURVES[curve]
+    ctx = E.CurveCtx(cv)
+    nl = ctx.fp.L // 2
+    K, L8 = nl // 4, 4 * nl
+    k_tiles = (K + 1) // 2
+    words = ek._mxu_fragments(ctx).reshape(-1, 32, 4)
+    x = np.random.default_rng(41).integers(0, 256, (8, L8))
+    x[0] = 255                                         # the largest sums
+    xw = (x.reshape(8, nl, 4) << (8 * np.arange(4))).sum(-1)   # (8, nl)
+    regs = np.zeros((k_tiles, 32, 2), np.int64)        # the slots' words
+    for kt in range(k_tiles):
+        for lane in range(32):
+            g, j = divmod(lane, 4)
+            for half in range(2):
+                if 2 * kt + half < K:
+                    regs[kt, lane, half] = xw[g, j * K + 2 * kt + half]
+    first = 0
+    for (ts, _), tiles in zip(F.mxu_tables(ctx.fp), (K, 2 * K)):
+        table = ts.astype(np.int64) + 128
+        got = np.zeros((8, table.shape[0]), np.int64)
+        for tile in range(tiles):
+            d = np.zeros((32, 4), np.int64)
+            for kt in range(k_tiles):
+                d += _mma_m16n8k32(words[first + tile * k_tiles + kt],
+                                   regs[kt])
+            for lane in range(32):
+                g, j = divmod(lane, 4)
+                c = 16 * tile + g
+                got[2 * j:2 * j + 2, c] = d[lane, :2]
+                got[2 * j:2 * j + 2, c + 8] = d[lane, 2:]
+        first += tiles * k_tiles
+        np.testing.assert_array_equal(got, x @ table.T)
+        assert got.max() < 1 << 22
+    assert first == words.shape[0]
 
 
 def test_chip_smoke_mxu_race_rehearses_on_cpu(capsys):
