@@ -4,9 +4,12 @@ It holds the device Pippenger MSM for G1 (`msm`, `msm_hybrid`), whose EC
 work runs in hand-written CUDA kernels for Hopper (`ops/ec_kernels.py`,
 `csrc/`), the standalone inner-product argument built on it (`create_ipp`,
 `verify_ipp`), the R1CS prover and verifier (`Prover`, `Verifier`,
-`R1CSProof`) with the range-proof gadget `models.bound_check`, their
-Fiat-Shamir transcript, and the exact-int host types they are checked
-against.  The package imports neither JAX nor bulletproofs_tpu.
+`R1CSProof`) with the gadgets of `models` (the range proof `bound_check`,
+the Poseidon preimage proofs and the sparse-Merkle-tree leaf-inclusion
+proofs), the batched device Poseidon (`ops/poseidon_device.py`) behind the
+trees' bulk updates, their Fiat-Shamir transcript, and the exact-int host
+types they are checked against.  The package imports neither JAX nor
+bulletproofs_tpu.
 """
 
 from .config import BLS381, BN254, curve, set_curve, using_curve

@@ -246,6 +246,26 @@ def mont_mul(a, b, ctx: FieldCtx):
                            (1 << 40) - 1)[:L]
 
 
+def mont_sq(a, ctx: FieldCtx):
+    return mont_mul(a, a, ctx)
+
+
+def inv_mont(a, ctx: FieldCtx):
+    """Montgomery-form inverse by Fermat, a^(p-2), elementwise: 0 maps to 0
+    (the host `Scalar.inverse` raises there).  The exponent is a Python
+    int, so the loop is left-to-right square-and-multiply over its bits
+    and multiplies only where a bit is set: n_bits - 1 squarings and
+    popcount(p - 2) - 1 products, the value of the JAX package's
+    `field_jax.inv_mont`, limb for limb."""
+    e = ctx.mod_int - 2
+    acc = a
+    for bit in bin(e)[3:]:
+        acc = mont_sq(acc, ctx)
+        if bit == "1":
+            acc = mont_mul(acc, a, ctx)
+    return acc
+
+
 # ---------------------------------------------------------------------------
 # Montgomery product with the REDC's fixed-operand products as int8 Toeplitz
 # matrix products: the plain version of kernel 5's product (the JAX

@@ -1,8 +1,10 @@
 """Drive the PyTorch/CUDA port on one NVIDIA card: build its kernels, hold
 each kernel against its plain PyTorch version, and run the n = 2^16 device
-Pippenger MSM, the n = 2^16 inner-product argument (prove and verify) and
-the aggregated range proof (R1CS prove and verify, m = 16 values of 64
-bits, n = 2048) of BLS12-381 G1 end to end.
+Pippenger MSM, the n = 2^16 inner-product argument (prove and verify), the
+aggregated range proof (R1CS prove and verify, m = 16 values of 64 bits,
+n = 2048) and the Poseidon / sparse-Merkle-tree workloads (bulk hashing,
+batch updates, the depth-12 SMT-4 leaf-inclusion proof) of BLS12-381 end
+to end.
 
     python3 chip_smoke.py [--seed S] [--n N]
 
@@ -24,6 +26,10 @@ Phases, each printing one JSON line with its seconds:
              (`ms`), the wrapper's time with its checks and any 16/32-bit
              limb packing (`wrapper_ms`), the plain version's time and the
              card's bound for the same work;
+             after the paths, the bucket kernel and the combine's forms
+             again at the shapes of each MSM that phase 7 ran (`kernels_at`:
+             kernel 2 at the witness's and the IPA's pre-reduced tables,
+             kernel 1 at the verifier's);
   3 msm_uniform    n random-scalar MSM (the bench's input: 256 base points
                    repeated) through `msm_hybrid`, 1 + 3 runs, and through
                    `msm_device` (the path of the public `msm`), 1 + 3 runs,
@@ -45,15 +51,26 @@ Phases, each printing one JSON line with its seconds:
              (tests/vectors/torch_r1cs_agg16.json), a host check through
              `Verifier._verify` over `msm_host`, `verify_device` 1 + 3
              times, and t_x + 1 rejected;
-  7 mxu_race one per-round bucket pass of the IPA MSM (its rounds over
+  7 smt      the bench's Poseidon / SMT sections at their sizes
+             (tests/vectors/torch_smt4_d12.json): `poseidon_hash_4_batch`
+             over 8192 child lists (hashes/s, 64 checked on the host); two
+             4096-pair `batch_update`s of a depth-12 SMT-4 (updates/s of
+             the second; the root against the JAX package's; 16 updated
+             leaves through `verify_proof`); the depth-12 leaf-inclusion
+             proof, n = 4096, 1 + 3 rounds of prove and verify (the first
+             proof's sha256 against the JAX package's), the stages of one
+             more proof, the host check, t_x + 1 rejected; one hash batch
+             and one proof traced (device busy, idle share, kernels);
+  8 mxu_race one per-round bucket pass of the IPA MSM (its rounds over
              S slots) through kernel 5 and through kernel 4, in turns, with
              microseconds per round and the buckets bit-exact at the end
              (both read their rows by id from the packed table);
-  8 launches the launch counts of each path (phases 3-4, 5, 6, 7), kernel
-             3's also by form, each kernel of a path (and each form of
-             kernel 3 the path runs, `PATHS`) required > 0 there,
-             and the counts of one range proof and verification and of one
-             IPA proof and verification.
+  9 launches the launch counts of each path (phases 3-4, 5, 6, 7, 8),
+             kernel 3's also by form, each kernel of a path (and each form
+             of kernel 3 the path runs, `PATHS`) required > 0 there, and
+             the counts of one range proof and verification, one IPA
+             proof and verification, and one SMT-4 proof and
+             verification.
 The last line is {"ok": true, "device": {...}}.  Any failure raises and
 exits non-zero before it.  Without a CUDA card the script exits 2.
 """
@@ -81,10 +98,17 @@ from bulletproofs_tpu_torch.ops.ec import (CurveCtx, content_digest,
                                            to_device_points_affine,
                                            to_device_scalars)
 from bulletproofs_tpu_torch.models import bound_check
+from bulletproofs_tpu_torch.models import sparse_merkle_tree_4_ary as smt4
+from bulletproofs_tpu_torch.models.helper_constraints.poseidon import (
+    PoseidonParams, Poseidon_hash_4)
+from bulletproofs_tpu_torch.models.helper_constraints.\
+    sparse_merkle_tree_4_ary import VanillaSparseMerkleTree_4
+from bulletproofs_tpu_torch.ops import poseidon_device
 from bulletproofs_tpu_torch.ops.field import pack32
 from bulletproofs_tpu_torch.ops.ec_host import G1, msm_host
 from bulletproofs_tpu_torch.ops.field_host import Scalar, inner_product
 from bulletproofs_tpu_torch.utils.errors import VerificationError
+from bulletproofs_tpu_torch.utils.hash_db import InMemoryHashDb
 
 # Bound model (NVIDIA H100 SXM data sheet, at its 700 W limit).  HBM3 at
 # 3.35 TB/s.  Integer multiply-adds: the float32 rate of 67 TFLOP/s counts
@@ -107,8 +131,9 @@ REPLACES = {
 SOURCES = {name: KERNEL_SOURCE for name in REPLACES}
 SOURCES["bucket_round_add_mxu"] = "bulletproofs_tpu_torch/csrc/mxu_kernels.cu"
 # The kernels each path launches, kernel 3 by form (`launch_counts`): the
-# MSM phases 3-4, the IPA phase 5, the range proof phase 6 and the race of
-# kernels 5 and 4 (phase 7).  Each must launch on its path.
+# MSM phases 3-4, the IPA phase 5, the range proof phase 6, the sparse
+# Merkle tree phase 7 and the race of kernels 5 and 4 (phase 8).  Each
+# must launch on its path.
 PATHS = {
     "msm": ("bucket_rounds_mixed", "bucket_rounds_proj", "ec_add:pairwise",
             "ec_add:gather_sum", "ec_add:window_totals", "ec_add:horner"),
@@ -116,6 +141,8 @@ PATHS = {
             "ec_add:window_totals"),
     "r1cs": ("bucket_rounds_mixed", "ec_add:pairwise", "ec_add:gather_sum",
              "ec_add:window_totals"),
+    "smt": ("bucket_rounds_mixed", "bucket_rounds_proj", "ec_add:pairwise",
+            "ec_add:gather_sum", "ec_add:window_totals"),
     "mxu_race": ("bucket_round_add_mxu", "bucket_round_add"),
 }
 # kernel 3's forms in phase 2 -> the kernel form each launches
@@ -127,6 +154,9 @@ N_BASE = 256
 # tests/test_torch_r1cs.py::test_agg16_reference_digest
 R1CS_REFERENCE = Path(__file__).resolve().parent / "tests" / "vectors" \
     / "torch_r1cs_agg16.json"
+# The JAX package's depth-12 SMT-4 root and proof digest, made and checked
+# by tests/test_torch_smt.py
+SMT_REFERENCE = R1CS_REFERENCE.with_name("torch_smt4_d12.json")
 
 
 def n_base(n):
@@ -267,19 +297,21 @@ def ipa_slots(n):
     return msm_mod.window_plan(ctx, c, n_sets=2, dup=True)[0].shape[0] << c
 
 
-def combine_shapes(n, n_sets):
+def combine_shapes(n, n_sets, c=None, horner=False):
     """The combine's shapes for an MSM of n points and n_sets scalar sets:
-    c = pick_window(n) and `window_plan(dup=True)`'s physical rows W' and
-    base windows W, with G, K of `bucket_rowcol`."""
+    c (by default pick_window(n)) and `window_plan(dup=True)`'s physical
+    rows W' and base windows W, with G, K of `bucket_rowcol`; horner:
+    whether the path runs the window Horner on the card (`msm_device`;
+    `msm_hybrid` runs it on the host)."""
     ctx = CurveCtx(BLS381)
-    c = msm_mod.pick_window(n)
+    c = c or msm_mod.pick_window(n)
     ranges, splits, dup = msm_mod.window_plan(ctx, c, n_sets=n_sets,
                                               dup=True)
     g_bits = (c + 1) // 2
     return {"n": n, "sets": n_sets, "c": c, "W_rows": ranges.shape[0],
             "W": ranges.shape[0] - sum(g - 1 for _, g in dup),
             "G": 1 << g_bits, "K": 1 << (c - g_bits), "ranges": ranges,
-            "splits": splits, "dup": dup}
+            "splits": splits, "dup": dup, "horner": horner}
 
 
 def phase_kernels(device, n, seed, reps=5, r1cs_msm_n=4098):
@@ -294,7 +326,9 @@ def phase_kernels(device, n, seed, reps=5, r1cs_msm_n=4098):
     (`mxu_bound`); kernel 3 pairwise at n + 3 points
     and its sequential forms at the combine's shapes of the range proof's
     two-set MSM (r1cs_msm_n points) and of the n-point MSM.  Half the
-    accumulators start at the identity.  Returns per-kernel records."""
+    accumulators start at the identity.  Returns (per-kernel records,
+    `check_msms`, which checks the kernels at the shapes of a path's MSMs
+    once the path has run)."""
     t0 = time.time()
     device = torch.device(device)
     cv = BLS381
@@ -446,11 +480,14 @@ def phase_kernels(device, n, seed, reps=5, r1cs_msm_n=4098):
     ]
     cases += form_cases(ctx, proj, gen, device, [
         ("r1cs", combine_shapes(r1cs_msm_n, 2)),
-        ("msm", combine_shapes(n, 1))])
+        ("msm", combine_shapes(n, 1, horner=True))])
 
     records = {}
-    for (name, kernel, plain, args, bare, (n_bytes, n_imad),
-         shape) in cases:
+
+    def check(name, kernel, plain, args, bare, work, shape):
+        """One case's kernel bit-exact against its plain version, timed,
+        into `records`."""
+        n_bytes, n_imad = work
         got = kernel(*args, ctx)
         _sync(device)
         plain_ms, want = time_ms(lambda: plain(*args, ctx), device, 1)
@@ -482,6 +519,9 @@ def phase_kernels(device, n, seed, reps=5, r1cs_msm_n=4098):
         else:
             records[name] = {**rec, "shape": shape}
 
+    for case in cases:
+        check(*case)
+
     # kernel 5 computes kernel 4's function: the same words
     if not torch.equal(
             ek.bucket_round_add_mxu(buckets_round, table_ipa, ids4, found4,
@@ -507,15 +547,48 @@ def phase_kernels(device, n, seed, reps=5, r1cs_msm_n=4098):
             raise AssertionError("ec_add disagrees with host ints")
     emit({"phase": "kernels", "S": S, "S_ipa": S_ipa, "R_c": R_c,
           "seconds": time.time() - t0})
-    return records
+
+    def check_msms(path, msms):
+        """The bucket kernel and kernel 3's sequential forms at the shapes
+        of the MSMs a path ran, each (points, sets, c, rounds, pre) as
+        `msm_shapes` lists them: at S = W'*B slots of `window_plan(n_sets=
+        sets, dup=True)` and the rounds of one launch, kernel 2 from a
+        pre-reduced table of W'*points rows where the MSM pre-reduced,
+        else kernel 1 from a table of `points` rows; the combine's forms at
+        its shapes.  Into `records` under `other_shapes` and `forms`."""
+        t1 = time.time()
+        for points, sets, c_k, rounds, pre in msms:
+            sh = combine_shapes(points, sets, c_k)
+            S_k = sh["W_rows"] << c_k
+            R_k = msm_mod._chunk_rounds(rounds)
+            rows = sh["W_rows"] * points if pre else points
+            ids_k, found_k = slot_grid(R_k, S_k, rows)
+            affine_k, proj_k = tables(rows)
+            name, table_k, words, empty = (
+                ("bucket_rounds_proj", proj_k, 3 * nl, 3) if pre
+                else ("bucket_rounds_mixed", affine_k, 2 * nl, 0))
+            kernel = getattr(ek, name)
+            check(name, kernel, getattr(ek, name + "_plain"),
+                  (accumulators(S_k), table_k, ids_k, found_k),
+                  bare_table(getattr(ek, name + "32")),
+                  rounds_work(found_k, words, empty, ids_read=True),
+                  {"path": path, "points": points, "sets": sets, "S": S_k,
+                   "R_c": R_k, "pre": pre, "table_rows": rows})
+            for case in form_cases(ctx, proj, gen, device, [(path, sh)]):
+                check(*case)
+        emit({"phase": "kernels_at", "path": path, "msms": msms,
+              "seconds": time.time() - t1})
+
+    return records, check_msms
 
 
 def form_cases(ctx, proj, gen, device, paths):
     """Phase 2's cases of kernel 3's sequential forms, at each path's
     combine shapes (`combine_shapes`): the split fold and the duplicate-row
     fold over W' rows of B buckets, the row and column sums, the window
-    totals, and (the n-point MSM, whose `msm_device` runs it) the window
-    Horner.  The buckets are projective points, 1 in 16 the identity."""
+    totals, and where the path runs it on the card (the n-point MSM's
+    `msm_device`) the window Horner.  The buckets are projective points,
+    1 in 16 the identity."""
     imad = imad_per_mont_mul(ctx)
     nl = ctx.fp.L // 2
     pt_bytes = 3 * nl * 4
@@ -580,7 +653,7 @@ def form_cases(ctx, proj, gen, device, paths):
                       ((W * (G + K) + W) * pt_bytes, adds * add),
                       {"form": "window_totals", "path": path, "W": W,
                        "G": G, "K": K, "dbl": dbl}))
-        if sh["sets"] == 1:
+        if sh["horner"]:
             totals = points(W)
             c = sh["c"]
 
@@ -914,6 +987,232 @@ def phase_r1cs(device, m, bits, reps, ref):
     return per_call
 
 
+def smt_params(ref):
+    """The reference's Poseidon parameters and s-box on BLS12-381."""
+    p = ref["poseidon"]
+    return (PoseidonParams(p["width"], p["full_rounds_beginning"],
+                           p["full_rounds_end"], p["partial_rounds"],
+                           cv=BLS381), p["sbox"])
+
+
+def trace(run):
+    """Run run() once under torch.profiler on the card: -> (its result,
+    {traced wall ms, device busy ms (kernels, copies and sets), idle share,
+    kernels, copies and sets})."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_us, kernels, copies = 0.0, 0, 0
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            busy_us += ev.time_range.elapsed_us()
+            if ev.name.startswith(("Memcpy", "Memset")):
+                copies += 1
+            else:
+                kernels += 1
+    return out, {"traced_wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
+                 "device_idle_share": 1 - busy_us / 1e3 / wall_ms,
+                 "device_kernels": kernels, "device_copies_and_sets": copies}
+
+
+def phase_smt(device, ref, n_bulk, reps):
+    """The bench's three Poseidon / sparse-Merkle-tree sections through the
+    port's entry points, with `ref`'s parameters and seeds (the shape of
+    tests/vectors/torch_smt4_d12.json):
+      - bulk Poseidon (`bench.py:671-685`): `poseidon_hash_4_batch` over
+        n_bulk child lists from random.Random(11), one warm call and one
+        timed; 64 sampled outputs against the host `Poseidon_hash_4`;
+      - SMT-4 batch update (`bench.py:687-710`): the two batches of
+        `ref["updates"]`, the first warm, the second timed; the root
+        against the JAX package's, `verify_proof` of 16 updated leaves
+        with the host hash;
+      - the leaf-inclusion proof (`bench.py:449-489`): 1 + reps rounds of
+        one `gen_proof_of_leaf_inclusion_4_ary_merkle_tree` and its
+        `verify_proof_of_...`, the first a warm-up whose proof must have
+        the JAX package's sha256; the stages of one more round's proof
+        (of the first without warm rounds); the host check
+        `Verifier._verify`; t_x + 1 rejected.
+    On the card, one bulk batch and one proof are traced.  Returns the
+    launches of one proof and one verification, the shapes of their MSMs
+    (`msm_shapes`), and the first proof with its commitments and tree
+    root."""
+    t0 = time.time()
+    cv = BLS381
+    params, sbox = smt_params(ref)
+    depth = ref["depth"]
+    on_card = torch.device(device).type == "cuda"
+    out = {"phase": "smt", "depth": depth}
+
+    rnd = random.Random(11)                  # the bench's seed
+    kids = [[Scalar.random(rnd, cv) for _ in range(4)] for _ in range(n_bulk)]
+
+    def bulk():
+        t1 = time.time()
+        res = poseidon_device.poseidon_hash_4_batch(kids, params, sbox,
+                                                    device=device)
+        return res, time.time() - t1
+
+    _, out["poseidon_hash4_first_seconds"] = bulk()
+    hashes, dt = bulk()
+    out["poseidon_hash4_per_s"] = n_bulk / dt
+    for i in random.Random(12).sample(range(n_bulk), min(64, n_bulk)):
+        if hashes[i] != Poseidon_hash_4(kids[i], params, sbox):
+            raise AssertionError(f"smt: batched hash {i} differs from the "
+                                 "host Poseidon_hash_4")
+    if on_card:
+        _, out["poseidon_batch_trace"] = trace(bulk)
+
+    upd = ref["updates"]
+    rnds = random.Random(upd["seed"])
+    batches = [[(Scalar(rnds.randrange(4 ** depth), cv),
+                 Scalar.random(rnds, cv)) for _ in range(upd["batch"])]
+               for _ in range(2)]
+    db = InMemoryHashDb()
+    tree = VanillaSparseMerkleTree_4(params, depth, db, device=device)
+    times = []
+    for pairs in batches:
+        t1 = time.time()
+        tree.batch_update(pairs, db)
+        times.append(time.time() - t1)
+    out["smt4_updates_first_seconds"] = times[0]
+    out["smt4_updates_per_s"] = upd["batch"] / times[1]
+    if tree.root.to_bytes().hex() != upd["root_both_batches"]:
+        raise AssertionError("smt: root after both batches differs from the "
+                             "JAX package's")
+    final = dict((k.v, v) for pairs in batches for k, v in pairs)
+    for k in random.Random(upd["seed"] + 1).sample(sorted(final),
+                                                   min(16, len(final))):
+        nodes = []
+        leaf = tree.get(Scalar(k, cv), nodes, db)
+        if leaf != final[k] or not tree.verify_proof(Scalar(k, cv), leaf,
+                                                     nodes):
+            raise AssertionError(f"smt: leaf {k} fails verify_proof")
+
+    pr = ref["proof"]
+    t1 = time.time()
+    pdb = InMemoryHashDb()
+    ptree = VanillaSparseMerkleTree_4(params, depth, pdb, device=device)
+    key = Scalar(pr["key"], cv)
+    ptree.update(key, Scalar(pr["value"], cv), pdb)
+    nodes = []
+    leaf = ptree.get(key, nodes, pdb)
+    if ptree.root.to_bytes().hex() != pr["tree_root"]:
+        raise AssertionError("smt: the proof's tree root differs")
+    G = bt.get_generators("G", pr["n"])
+    H = bt.get_generators("H", pr["n"])
+    g, h = G1.from_msg_hash(b"g", cv), G1.from_msg_hash(b"h", cv)
+    label = pr["label"].encode()
+    rng = random.Random(pr["rng_seed"])
+    out["setup_seconds"] = time.time() - t1
+
+    per_call = {}
+    # the escalation memo starts empty for the proofs, so that it lists
+    # every MSM shape they run (`msm_shapes`); earlier entries come back
+    # after
+    memo = msm_mod._escalation_memo
+    earlier = dict(memo)
+    memo.clear()
+
+    def counted(kind, fn):
+        before = launch_counts()
+        res = fn()
+        per_call[kind] = {k: v - before[k] for k, v in
+                          launch_counts().items()}
+        return res
+
+    def prove():
+        return smt4.gen_proof_of_leaf_inclusion_4_ary_merkle_tree(
+            leaf, key, None, nodes, ptree.root, depth, params, sbox, rng,
+            label, g, h, G, H, device=device)
+
+    def verify(proof, comms):
+        smt4.verify_proof_of_leaf_inclusion_4_ary_merkle_tree(
+            ptree.root, depth, params, sbox, proof, comms, label, g, h, G, H,
+            device=device)
+
+    def once(profile=False):
+        """One proof and its verification -> (proof, commitments, prove
+        seconds, verify seconds); profile: the proof's stages' seconds go
+        to `prover_device._prof`."""
+        prover_device._prof.enabled = profile
+        t1 = time.time()
+        try:
+            proof, comms = counted("prove", prove)
+        finally:
+            prover_device._prof.enabled = False
+        t2 = time.time()
+        counted("verify", lambda: verify(proof, comms))
+        return proof, comms, t2 - t1, time.time() - t2
+
+    # the stage split comes from one more warm proof (from the first when
+    # there are no warm ones), so the timed proofs carry no syncs
+    prover_device._prof.take()
+    proof, comms, out["smt4_d12_prove_first_seconds"], \
+        out["smt4_d12_verify_first_seconds"] = once(profile=not reps)
+    digest = hashlib.sha256(proof.to_bytes()).hexdigest()
+    if digest != pr["sha256"]:
+        raise AssertionError(f"smt: the first proof has sha256 {digest}, "
+                             f"the JAX package's {pr['sha256']}")
+    runs = [once() for _ in range(reps)]
+    p50 = lambda ts, first: sorted(ts)[len(ts) // 2] if ts else first
+    out["smt4_d12_prove_seconds_p50"] = p50(
+        [r[2] for r in runs], out["smt4_d12_prove_first_seconds"])
+    out["smt4_d12_verify_seconds_p50"] = p50(
+        [r[3] for r in runs], out["smt4_d12_verify_first_seconds"])
+
+    staged = once(profile=True)[2] if reps \
+        else out["smt4_d12_prove_first_seconds"]
+    stages = prover_device._prof.take()
+    stages["other"] = staged - sum(stages.values())
+    out["smt4_d12_prove_stage_seconds"] = stages
+    out["stage_call"] = "warm" if reps else "cold"
+
+    t1 = time.time()
+    verifier = bt.Verifier(bt.ProofTranscript(label), device=device)
+    smt4.verify_leaf_inclusion_4_ary_merkle_tree(
+        ptree.root, depth, params, sbox, comms, g, h, verifier)
+    verifier._verify(proof, g, h, G, H)
+    out["host_check_seconds"] = time.time() - t1
+    bad = bt.R1CSProof.from_bytes(proof.to_bytes())
+    bad.t_x = bad.t_x + Scalar.one(cv)
+    try:
+        verify(bad, comms)
+    except VerificationError:
+        pass
+    else:
+        raise AssertionError("smt: a tampered proof (t_x + 1) verified")
+    if on_card:
+        _, out["proof_trace"] = trace(prove)
+
+    # the round counts and pre-reduction passes that the MSMs of the proof
+    # and its verification settled on, by shape
+    msms = msm_shapes()
+    for k, v in earlier.items():
+        memo.setdefault(k, v)
+    out["msm_escalation"] = {
+        f"points={n},sets={k},c={c}": {"rounds": r, "pre": pre}
+        for n, k, c, r, pre in msms}
+    emit({**out, "n_bulk": n_bulk, "updates": upd["batch"], "n": pr["n"],
+          "proof_sha256": digest, "matches_reference": True,
+          "root_matches_reference": True, "tampered_rejected": True,
+          "launches_per_call": per_call, "seconds": time.time() - t0})
+    return {"launches": per_call, "msms": msms, "proof": proof,
+            "commitments": comms, "root": ptree.root}
+
+
+def msm_shapes():
+    """The MSM shapes in `msm._escalation_memo`, with the rounds and
+    pre-reduction passes that `msm_hybrid` settled on for each:
+    [(points, sets, c, rounds, pre)]."""
+    return [(k[0], k[1], k[2], *v) for k, v in
+            msm_mod._escalation_memo.items()]
+
+
 def _ipa_round_schedule(n, seed, device):
     """The bucket rounds of the IPA's first two-set MSM at n, as
     `msm.bucket_accumulate` plans them: -> (the packed projective table
@@ -1039,13 +1338,14 @@ def main():
     with using_curve(BLS381):
         kind, smi = phase_device()
         phase_build()
-        records = phase_kernels("cuda", args.n, args.seed)
+        records, check_msms = phase_kernels("cuda", args.n, args.seed)
 
         def msm_path():
             phase_msm("cuda", args.n, args.seed, bits=False, reps=3)
             phase_msm("cuda", args.n, args.seed + 1, bits=True, reps=3)
 
         ref = json.loads(R1CS_REFERENCE.read_text())
+        smt_ref = json.loads(SMT_REFERENCE.read_text())
         per_call = {}
         by_path = {
             "msm": _run_path("msm", msm_path),
@@ -1053,15 +1353,22 @@ def main():
                 "cuda", args.n, args.seed + 2, reps=3), per_call),
             "r1cs": _run_path("r1cs", lambda: phase_r1cs(
                 "cuda", ref["m"], ref["bits"], 3, ref), per_call),
+            "smt": _run_path("smt", lambda: phase_smt(
+                "cuda", smt_ref, 8192, 3), per_call),
             "mxu_race": _run_path("mxu_race", lambda: phase_mxu_race(
                 "cuda", args.n, args.seed + 3)),
         }
+        smt = per_call["smt"]
+        per_call["smt"] = smt["launches"]
+        check_msms("smt", smt["msms"])   # outside the paths' counts
         add_launches(records, by_path)
         emit({"phase": "launches", "launches": by_path,
               "per_r1cs_proof": per_call["r1cs"]["prove"],
               "per_r1cs_verify": per_call["r1cs"]["verify"],
               "per_ipa_proof": per_call["ipa"]["prove_chunk"],
               "per_ipa_verify": per_call["ipa"]["verify"],
+              "per_smt_proof": per_call["smt"]["prove"],
+              "per_smt_verify": per_call["smt"]["verify"],
               "seconds": time.time() - t_start})
     print(smi, flush=True)
     emit({"kernels": [records[k] for k in REPLACES]})

@@ -1,7 +1,8 @@
-"""The port's CUDA kernels, MSM, IPA and R1CS proofs on the card: each
-kernel against its plain PyTorch version, word for word (kernel 5 also
-against kernel 4), the MSM against exact-int host sums, and IPA and range
-proofs against the port's own CPU runs, byte for byte.  Every test is
+"""The port's CUDA kernels, MSM, IPA, R1CS proofs, Poseidon and sparse
+Merkle trees on the card: each kernel against its plain PyTorch version,
+word for word (kernel 5 also against kernel 4), the MSM against exact-int
+host sums, IPA, range and SMT-4 proofs against the port's own CPU runs,
+byte for byte, and the batched Poseidon against its CPU run.  Every test is
 marked `cuda` and skips without a card.
 
 This file imports neither jax nor the JAX package, so on a machine without
@@ -395,6 +396,102 @@ def test_r1cs_on_card_matches_cpu(curve, cuda_device):
         ek.reset_launches()
         proof, comms = prove("cuda")
         assert ek.launches["ec_add"] > 0
+        assert ek.launches["bucket_rounds_mixed"] > 0
+        want, _ = prove("cpu")
+        assert proof.to_bytes() == want.to_bytes()
+        verify(proof, comms)
+        bad = bt.R1CSProof.from_bytes(proof.to_bytes())
+        bad.t_x = bad.t_x + bt.Scalar(1)
+        with pytest.raises(VerificationError):
+            verify(bad, comms)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("curve", sorted(CURVES))
+@pytest.mark.parametrize("sbox", ["cube", "quint", "inverse"])
+def test_poseidon_permutation_on_card_matches_cpu(sbox, curve,
+                                                   cuda_device):
+    """The batched permutation on the card equals its CPU run, widths 3, 5
+    and 9: 8192 permutations for Quint at the reference's schedule (the
+    bench's batch), 64 for Cube, and 64 with one full and one partial round
+    for Inverse (~380 products a round); a zero s-box input maps to 0."""
+    from bulletproofs_tpu_torch.models.helper_constraints.poseidon import \
+        PoseidonParams
+    from bulletproofs_tpu_torch.ops import poseidon_device as pd
+    cv = CURVES[curve]
+    schedules = {3: (4, 4, 55), 5: (4, 4, 56), 9: (4, 4, 57)}
+    n = {"quint": 8192, "cube": 64, "inverse": 64}[sbox]
+    rnd = random.Random(f"{curve}-{sbox}")
+    for width, sched in schedules.items():
+        if sbox == "inverse":
+            sched = (1, 0, 1)
+        params = PoseidonParams(width, *sched, cv=cv)
+        cols = [[bt.Scalar(rnd.randrange(cv.r), cv) for _ in range(n)]
+                for _ in range(width)]
+        cols[0][1] = bt.Scalar(-params.round_keys[0].v, cv)
+        cpu_n = n if sbox != "quint" else 256
+        got = pd.poseidon_permutation_batch(cols, params, sbox,
+                                            device=cuda_device)
+        want = pd.poseidon_permutation_batch([c[:cpu_n] for c in cols],
+                                             params, sbox, device="cpu")
+        assert [c[:cpu_n] for c in got] == want
+        if sbox == "quint" and width == 5:
+            from bulletproofs_tpu_torch.models.helper_constraints.poseidon \
+                import Poseidon_permutation
+            with bt.using_curve(cv):      # the host's sums start at zero()
+                for k in (0, n // 2, n - 1):
+                    assert [c[k] for c in got] == Poseidon_permutation(
+                        [c[k] for c in cols], params, sbox)
+
+
+@pytest.mark.cuda
+def test_smt4_proof_on_card_matches_cpu(cuda_device):
+    """A depth-2 SMT-4 inclusion proof (reduced-round Poseidon, n = 64) on
+    the card is byte-identical to the port's CPU proof; the card verifier
+    accepts it and rejects t_x + 1; a batch update on the card gives the
+    CPU's root."""
+    from bulletproofs_tpu_torch.models import sparse_merkle_tree_4_ary as smt
+    from bulletproofs_tpu_torch.models.helper_constraints.poseidon import \
+        PoseidonParams
+    from bulletproofs_tpu_torch.models.helper_constraints.\
+        sparse_merkle_tree_4_ary import VanillaSparseMerkleTree_4
+    from bulletproofs_tpu_torch.utils.errors import VerificationError
+    from bulletproofs_tpu_torch.utils.hash_db import InMemoryHashDb
+    with bt.using_curve(BLS381):
+        params = PoseidonParams(5, 1, 0, 1)
+        roots = {}
+        for dev in ("cuda", "cpu"):
+            db = InMemoryHashDb()
+            tree = VanillaSparseMerkleTree_4(params, 3, db, device=dev)
+            rnd = random.Random(5)
+            tree.batch_update([(bt.Scalar(rnd.randrange(64)),
+                                bt.Scalar.random(rnd)) for _ in range(40)],
+                              db)
+            roots[dev] = tree.root
+        assert roots["cuda"] == roots["cpu"]
+
+        db = InMemoryHashDb()
+        tree = VanillaSparseMerkleTree_4(params, 2, db, device="cpu")
+        for i in range(1, 4):
+            tree.update(bt.Scalar(i), bt.Scalar(100 + i), db)
+        idx = bt.Scalar(2)
+        nodes = []
+        leaf = tree.get(idx, nodes, db)
+        G, H = bt.get_generators("G", 64), bt.get_generators("H", 64)
+        g, h = bt.G1.from_msg_hash(b"g"), bt.G1.from_msg_hash(b"h")
+
+        def prove(dev):
+            return smt.gen_proof_of_leaf_inclusion_4_ary_merkle_tree(
+                leaf, idx, None, nodes, tree.root, 2, params, "quint",
+                random.Random(0x5A7), b"SMT4", g, h, G, H, device=dev)
+
+        def verify(proof, comms):
+            smt.verify_proof_of_leaf_inclusion_4_ary_merkle_tree(
+                tree.root, 2, params, "quint", proof, comms, b"SMT4", g, h,
+                G, H)
+
+        ek.reset_launches()
+        proof, comms = prove("cuda")
         assert ek.launches["bucket_rounds_mixed"] > 0
         want, _ = prove("cpu")
         assert proof.to_bytes() == want.to_bytes()

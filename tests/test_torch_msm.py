@@ -303,7 +303,13 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, check=True,
                          timeout=300)
     res = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "bulletproofs_tpu_torch.ops.msm" in res["mods"]
+    assert {"bulletproofs_tpu_torch.ops.msm",
+            "bulletproofs_tpu_torch.ops.poseidon_device",
+            "bulletproofs_tpu_torch.utils.hash_db",
+            "bulletproofs_tpu_torch.models.poseidon_hash",
+            "bulletproofs_tpu_torch.models.sparse_merkle_tree_4_ary",
+            "bulletproofs_tpu_torch.models.sparse_merkle_tree_8_ary"} \
+        <= set(res["mods"])
     assert res["bad"] == []
 
 
@@ -312,10 +318,19 @@ def test_chip_smoke_phases_rehearse_on_cpu(capsys):
     their plain versions: the control flow, shapes and host checks."""
     chip_smoke = importlib.import_module("chip_smoke")
 
-    records = chip_smoke.phase_kernels("cpu", 256, 5, reps=1,
-                                       r1cs_msm_n=64)
+    records, check_msms = chip_smoke.phase_kernels("cpu", 256, 5, reps=1,
+                                                   r1cs_msm_n=64)
     assert set(records) == set(chip_smoke.REPLACES)
     assert all(r["max_abs_err"] == 0 for r in records.values())
+    # after a path: kernel 2 at a pre-reduced 3-set MSM's shape, kernel 1
+    # at a 1-set one's, with their combine forms
+    forms = len(records["ec_add"]["forms"])
+    check_msms("smt", [(24, 3, 2, 4, 1), (24, 1, 2, 4, 0)])
+    for name, sets in (("bucket_rounds_proj", 3), ("bucket_rounds_mixed", 1)):
+        sub = records[name]["other_shapes"][-1]
+        assert sub["shape"]["path"] == "smt" and sub["max_abs_err"] == 0
+        assert sub["shape"]["sets"] == sets
+    assert len(records["ec_add"]["forms"]) == forms + 2 * 4
     ek.reset_launches()
     chip_smoke.phase_msm("cpu", 256, 6, bits=False, reps=0)
     chip_smoke.phase_msm("cpu", 256, 7, bits=True, reps=0)
