@@ -31,12 +31,17 @@ class InnerProductArgumentProof:
 
 
 def create_ipp(transcript, Q, G_factors, H_factors, G_vec, H_vec, a_vec,
-               b_vec, device="cuda",
-               ec_kernel="chunk") -> InnerProductArgumentProof:
+               b_vec, device="cuda", ec_kernel="chunk",
+               fused=None) -> InnerProductArgumentProof:
     """Prover side (`ipp.rs:35-202`): the proof is for the bases
     G'_i = G_factors_i * G_i, H'_i = H_factors_i * H_i; all vectors share a
     power-of-two length.  ec_kernel: the MSM bucket pass's form, "chunk"
-    or "round" (`ops/msm.py: bucket_accumulate`); the proofs are equal."""
+    or "round" (`ops/msm.py: bucket_accumulate`); fused: every round and
+    the transcript on the device (True; the default on a card, off for
+    Edwards-serialized curves) or one MSM and one host transcript step a
+    round (False; the default on the CPU)
+    (`ops/prover_device.py: create_ipp_implicit`).  The proofs are
+    equal."""
     n = len(G_vec)
     if not n or n & (n - 1):
         raise ValueError(f"IPA length {n} is not a power of two")
@@ -45,7 +50,7 @@ def create_ipp(transcript, Q, G_factors, H_factors, G_vec, H_vec, a_vec,
         raise ValueError("IPA vectors of unequal length")
     L_vec, R_vec, a, b = create_ipp_device(
         transcript, Q, G_factors, H_factors, G_vec, H_vec, a_vec, b_vec,
-        device=device, ec_kernel=ec_kernel)
+        device=device, ec_kernel=ec_kernel, fused=fused)
     return InnerProductArgumentProof(L=L_vec, R=R_vec, a=a, b=b)
 
 

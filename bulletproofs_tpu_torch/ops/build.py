@@ -4,7 +4,9 @@ a plain C interface, loaded with `ctypes`.  No PyTorch headers and no
 
 Each source of `SOURCES` is its own library: kernels 1-4 in
 `csrc/ec_kernels.cu`, kernel 5 in `csrc/mxu_kernels.cu`, both including
-`csrc/ec_lanes.cuh`, `csrc/ec_common.cuh` and `csrc/carry.cuh`.  The
+`csrc/ec_lanes.cuh`, `csrc/ec_common.cuh` and `csrc/carry.cuh`, and the
+fused IPA's `bp_ipa_challenge` in `csrc/transcript_kernels.cu` (including
+`csrc/ec_common.cuh`).  The
 libraries are built at first CUDA use into
 `bulletproofs_tpu_torch/_build/` (listed in `.gitignore`), one `nvcc` per
 source, all started together; each is named by a hash of its source, the
@@ -47,6 +49,10 @@ SOURCES = {
     CSRC / "mxu_kernels.cu": {
         "bp_bucket_round_add_mxu": (_P, _P, _P, _P, _P, _I, _I, _P, _P,
                                     _P),
+    },
+    CSRC / "transcript_kernels.cu": {
+        "bp_ipa_challenge": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
+                             _P),
     },
 }
 

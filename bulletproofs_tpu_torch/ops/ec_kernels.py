@@ -36,7 +36,9 @@ tensor it launches the kernel on PyTorch's current stream, or raises.
 There is no fallback from the kernel to the plain version.  The `*32`
 functions launch a kernel on operands already packed, with no checks, so
 the kernel can be timed alone.  `launches[name]` counts kernel launches,
-and only those; `form_launches` splits kernel 3's by form.
+and only those, also of the fused IPA's `bp_ipa_challenge`
+(`ops/transcript_kernels.py`, launched through `_launch`);
+`form_launches` splits kernel 3's by form.
 """
 
 import functools
@@ -49,7 +51,8 @@ from .ec import CurveCtx, ec_add as ec_add_plain, ec_madd
 from .field import mont_mul, mont_mul_mxu, mxu_tables, pack32, unpack32
 
 launches = {"bucket_rounds_mixed": 0, "bucket_rounds_proj": 0, "ec_add": 0,
-            "bucket_round_add": 0, "bucket_round_add_mxu": 0}
+            "bucket_round_add": 0, "bucket_round_add_mxu": 0,
+            "ipa_challenge": 0}
 # kernel 3's launches by form (they sum to launches["ec_add"])
 form_launches = {"pairwise": 0, "gather_sum": 0, "window_totals": 0,
                  "horner": 0}

@@ -18,7 +18,8 @@ CUDA kernels of `ops/ec_kernels.py`.
    row/column sums (`ec_gather_sum`), then the weighted running sums
    (`ec_window_totals`): kernel 3's sequential forms, one launch each, give
    one total per window; the window Horner runs on the host in Python ints
-   (`msm_hybrid`) or on the device (`ec_horner`, `msm_device`).
+   (`msm_hybrid`) or on the device (`ec_horner`: `msm_device`, and
+   `msm_sets_device`, the fused IPA's MSM, which never synchronises).
 
 `pick_window`, `window_plan`, `occupancy_guess` and the slot-grid algorithm
 are identical to the JAX package's, so digits, grids, occupancy and bucket
@@ -187,8 +188,9 @@ def _slot_grid(digits, B, R, ranges=None, splits=None):
     point added to bucket b of window w in round t, or n for an empty slot.
     Returns ((R, W, B) grid, found mask, true max occupancy as an int)."""
     sorted_d, rank, perm = _sorted_ranks(digits)
-    return _slot_grid_from(sorted_d, rank, perm, B, R, ranges, splits,
-                           digits.shape[1])
+    grid, found, occ = _slot_grid_from(sorted_d, rank, perm, B, R, ranges,
+                                       splits, digits.shape[1])
+    return grid, found, int(occ)
 
 
 def _sort_by(key, value):
@@ -205,18 +207,23 @@ def _slot_grid_from(sorted_d, rank, values, B, R, ranges, splits, n):
        rank >= R never scheduled);
     2. merge real entries with one dummy per slot (keys doubled, dummies
        odd, so a real entry sorts before its slot's dummy);
-    3. keep the first entry of every slot and compact them to the front."""
+    3. keep the first entry of every slot and compact them to the front.
+
+    Returns ((R, W, B) grid, found mask, true max occupancy as a 0-dim
+    tensor on the device)."""
     W = sorted_d.shape[0]
     dev = sorted_d.device
     if splits is not None:
-        ranges_t = torch.as_tensor(ranges, dtype=torch.int64, device=dev)
-        splits_t = torch.as_tensor(splits, dtype=torch.int64, device=dev)
+        ranges_t = _index_on(("ranges", tuple(ranges[:, 0].tolist())),
+                             lambda: ranges, dev)
+        splits_t = _index_on(("splits", tuple(splits[:, 0].tolist())),
+                             lambda: splits, dev)
         bucket = sorted_d + ranges_t * (rank % splits_t)
         rank = rank // splits_t
     else:
         bucket = sorted_d
 
-    occ = int(torch.where(sorted_d == 0, 0, rank).max()) + 1
+    occ = torch.where(sorted_d == 0, 0, rank).max() + 1
 
     real_key = torch.where((sorted_d == 0) | (rank >= R),
                            2 * (R * B + 1), (rank * B + bucket) * 2)
@@ -243,8 +250,9 @@ _index_tables = {}
 
 
 def _index_on(key, make, device):
-    """A gather-sum index table (numpy int32 from `make()`) on `device`,
-    made once per key and device."""
+    """A constant table (numpy from `make()`: a gather-sum index, a window
+    plan's ranges or splits) on `device`, made once per key and device, so
+    a warm MSM copies nothing from the host."""
     k = (key, str(device))
     if k not in _index_tables:
         _index_tables[k] = torch.as_tensor(make(), device=device)
@@ -374,7 +382,7 @@ def point_table(points, ctx: CurveCtx, affine, ec_kernel="chunk"):
 
 def bucket_accumulate(points, digits, ctx: CurveCtx, c: int, n_rounds,
                       plan=None, pre_reduce=0, affine=False,
-                      ec_kernel="chunk", table32=None):
+                      ec_kernel="chunk", table32=None, sync=True):
     """points (3, L, n) Montgomery, digits (W, n) -> (buckets (3, NL, W, B)
     PACKED, occ), occ the true max occupancy under `plan` after
     `pre_reduce` passes.
@@ -382,6 +390,10 @@ def bucket_accumulate(points, digits, ctx: CurveCtx, c: int, n_rounds,
     The occupancy comes from the slot grid before any EC work: when it
     exceeds `n_rounds` the schedule would drop points, so nothing is added
     and buckets is None; the caller escalates (`_escalate`) and calls again.
+    sync=False keeps occ a 0-dim device tensor, never read here, so the
+    pass makes no host synchronisation: the rounds run whatever occ is,
+    the points of rank >= n_rounds are dropped, and the caller reads occ
+    later and, where it exceeds n_rounds, runs again escalated.
 
     plan: (ranges, splits[, dup_plan]) from `window_plan`.
     pre_reduce: halving passes (`_pre_reduce_rows`) that tame degenerate
@@ -424,24 +436,27 @@ def bucket_accumulate(points, digits, ctx: CurveCtx, c: int, n_rounds,
         raise ValueError(f"table32 must be ({n}, {words}) int32 on {dev}, "
                          f"got {tuple(table32.shape)} {table32.dtype} on "
                          f"{table32.device}")
+    sorted_d, rank, perm = _sorted_ranks(digits)
     if pre_reduce:
-        sorted_d, rank, perm = _sorted_ranks(digits)
         alive = (rank & ((1 << pre_reduce) - 1)) == 0
         iota = torch.arange(n, device=dev).expand(W, n)
         grid, found, occ = _slot_grid_from(
             torch.where(alive, sorted_d, 0), rank >> pre_reduce, iota, B,
             n_rounds, ranges, splits, n)
+    else:
+        grid, found, occ = _slot_grid_from(sorted_d, rank, perm, B,
+                                           n_rounds, ranges, splits, n)
+    if sync:
+        occ = int(occ)
         if occ > n_rounds:
             return None, occ
+    if pre_reduce:
         table32 = _pre_reduce_rows(points, sorted_d, rank, perm, ctx,
                                    pre_reduce)
         # window w's sorted positions are rows w*n .. w*n + n - 1
         grid = grid.clamp(max=n - 1) + \
             (torch.arange(W, device=dev) * n).reshape(1, W, 1)
     else:
-        grid, found, occ = _slot_grid(digits, B, n_rounds, ranges, splits)
-        if occ > n_rounds:
-            return None, occ
         grid = grid.clamp(max=n - 1)
         if table32 is None:
             table32 = point_table(points, ctx, affine, ec_kernel)
@@ -546,6 +561,29 @@ def msm_totals(points, scalars, ctx: CurveCtx, c: int, n_rounds,
     L, m = ctx.fp.L, totals.shape[2]
     plain = fd.from_mont(totals.permute(1, 0, 2).reshape(L, 3 * m), ctx.fp)
     return plain.reshape(L, 3, m).permute(1, 0, 2), occ
+
+
+def msm_sets_device(points, scalars, ctx: CurveCtx, c: int, n_rounds,
+                    pre_reduce=0, affine=False, ec_kernel="chunk",
+                    table32=None):
+    """S scalar sets against one point table, all on the device and with
+    no host synchronisation (the fused IPA's MSM): points (3, L, n)
+    Montgomery and scalars (S, Lr, n) plain -> (packed (3, NL, S) results,
+    the occupancy as a 0-dim device tensor).  One bucket pass at
+    (n_rounds, pre_reduce) whatever the occupancy (`bucket_accumulate`
+    with sync=False), the row and column sums, the window totals and each
+    set's Horner on the card (`combine_from_rowcol`).  Where occ exceeds
+    n_rounds, points were dropped and the results are wrong: the caller
+    reads occ and runs again escalated (`_escalate`)."""
+    digits = _digits_multi(scalars, ctx, c)
+    plan = window_plan(ctx, c, n_sets=scalars.shape[0], dup=True)
+    buckets, occ = bucket_accumulate(points, digits, ctx, c, n_rounds,
+                                     plan=plan, pre_reduce=pre_reduce,
+                                     affine=affine, ec_kernel=ec_kernel,
+                                     table32=table32, sync=False)
+    rowsum, colsum = bucket_rowcol(buckets, ctx, c)
+    return combine_from_rowcol(rowsum, colsum, ctx, c,
+                               wins_per_set=_n_windows(ctx, c)), occ
 
 
 def _horner(totals, cv, c):

@@ -18,17 +18,27 @@ two-set MSM over the fixed table [G | H | Q | identity] with masked scalar
 vectors, through the device Pippenger and its CUDA bucket kernels; the
 masked half of every vector is zero, so the scheduler never adds it.
 
+On a card the IPA runs fused by default (`create_ipp_implicit`): every
+round on the device with no host synchronisation, the Fiat-Shamir step of
+each round in one launch of `bp_ipa_challenge`
+(`ops/transcript_kernels.py`), the transcript's state uploaded once and
+the proof fetched once (`create_ipp_implicit_fused`).  `fused=False`, the
+default on the CPU, and Edwards-serialized curves run one MSM
+(`msm_hybrid`, its Horner on the host) and one host transcript step a
+round (`_create_ipp_per_round`).  Both give the same bytes.
+
 All scalar work is plain PyTorch on F_r limbs in Montgomery form
 (`ops/field.py`), as the JAX package does it in XLA.  Values are canonical
 at every step, so the port and the JAX package agree limb for limb and the
 proofs are byte-identical.
 
 `BP_PROFILE=1` (or `_prof.enabled = True`) accumulates the seconds of the
-stages (`phase1_convert`, `phase1_msm`, `zfold`, `tpoly`, `t_commits`,
-`ipa_scal`, `ipa_msm`, `ipa_transcript`, `ipa_final`) in `_prof` (read them
-with `_prof.take()`); a stage nested in another is counted in its own label
-only, and on a card each timed stage synchronizes before it reads the
-clock.
+stages (`phase1_convert`, `phase1_msm`, `zfold`, `tpoly`, `t_commits`;
+the fused IPA's `ipa_fused_kernel` (its launches) and `ipa_fused_fetch`;
+the per-round IPA's `ipa_scal`, `ipa_msm`, `ipa_transcript`, `ipa_final`)
+in `_prof` (read them with `_prof.take()`); a stage nested in another is
+counted in its own label only, and on a card each timed stage
+synchronizes before it reads the clock.
 """
 
 import os
@@ -42,9 +52,13 @@ from . import field as fd
 from . import msm as msm_mod
 from .ec import (CurveCtx, content_digest, from_device_points,
                  to_device_points_affine, to_device_scalars)
+from .ec_host import G1
 from .ec_kernels import affine_rows32, ec_add
 from .field import pack32, unpack32
 from .field_host import Scalar
+from .transcript_device import DeviceTranscript, replay_positions
+from .transcript_kernels import ipa_challenge, round_registers, \
+    round_schedule
 
 
 class _Prof:
@@ -265,19 +279,161 @@ def _create_ipp_per_round(transcript, Gf_m, Hf_m, pts_dev, A, B, ctx,
     return L_vec, R_vec, a, b
 
 
+# (n, c, curve) -> the (rounds, pre) the fused IPA last settled on, where
+# the next fused IPA of that shape starts
+_fused_memo = {}
+
+
+def _ipa_fused_rounds(state, pts_dev, A, B, rG, rH, ctx, c, rounds, pre,
+                      regs, affine=False, ec_kernel="chunk", table32=None):
+    """Launch every round of the IPA on the device, with no host
+    synchronisation: per round the L and R scalar sets
+    (`_ipa_round_scalars`), their two-set MSM (`msm.msm_sets_device` at
+    (rounds, pre)), the round's Fiat-Shamir step (`ipa_challenge`: the
+    point bytes, the new transcript state, u and u^-1) and the fold
+    (`_ipa_round_update`).  state: the transcript's (200,) int64 state on
+    the device; regs: (the first round's STROBE registers, every later
+    round's).  Returns ONE int64 tensor on the device, [L/R bytes
+    (lg n, 2, 2*mb + 1) | a (Lr) | b (Lr) plain limbs | final state (200) |
+    the largest occupancy of the rounds (1)], so the caller fetches once."""
+    fr = ctx.fr
+    lr, u = [], None
+    occ_max = torch.zeros((), dtype=torch.int64, device=A.device)
+    n_j = A.shape[-1]
+    while n_j != 1:
+        if u is not None:         # fold round j-1 (blocks of 2 n_j)
+            A, B, rG, rH = _ipa_round_update(A, B, rG, rH, u[0], u[1],
+                                             2 * n_j, fr)
+        scal2 = _ipa_round_scalars(A, B, rG, rH, n_j, fr)
+        LR, occ = msm_mod.msm_sets_device(pts_dev, scal2, ctx, c, rounds,
+                                          pre, affine, ec_kernel, table32)
+        pb, state, u = ipa_challenge(LR, state, regs[1 if lr else 0], ctx)
+        lr.append(pb.reshape(-1))
+        occ_max = torch.maximum(occ_max, occ)
+        n_j //= 2
+    if u is not None:
+        A, B, _, _ = _ipa_round_update(A, B, None, None, u[0], u[1], 2, fr)
+    ab = fd.from_mont(torch.cat([A[:, :1], B[:, :1]], dim=1), fr)
+    return torch.cat(lr + [ab.T.reshape(-1), state, occ_max.reshape(1)])
+
+
+def create_ipp_implicit_fused(transcript, Gf_m, Hf_m, pts_dev, A, B, ctx,
+                              window=None, affine=False, ec_kernel="chunk",
+                              table32=None):
+    """The fused IPA prover: the operands and results of
+    `_create_ipp_per_round`, the same proof bytes and the same transcript
+    continuation, with one upload of the transcript's state, the rounds'
+    launches and one fetch (`_ipa_fused_rounds`).
+
+    The STROBE registers of every round depend on the schedule only:
+    round 1 starts at the host transcript's, and every later round at the
+    registers round 1 ends on (a round ends on its challenge squeeze), which
+    one dry replay checks here.  The bucket passes run at the (rounds, pre)
+    of `_fused_memo`; when the fetched occupancy exceeds the rounds, the
+    whole IPA runs again from the same state at the escalated shape
+    (`msm._escalate`): nothing has been absorbed on the host.  The L and R
+    points are decoded from the fetched bytes by `G1.from_bytes`, which
+    checks each against the curve, and the host transcript takes the final
+    state (`DeviceTranscript.writeback`)."""
+    fr = ctx.fr
+    dev = A.device
+    n = A.shape[-1]
+    lg_n = n.bit_length() - 1
+    if (1 << lg_n) != n:
+        raise ValueError(f"IPA length {n} is not a power of two")
+    mb = ctx.cv.modbytes
+    PB = 2 * mb + 1
+    transcript.innerproduct_domain_sep(n)
+    snap, *regs0 = DeviceTranscript.snapshot(transcript)
+    regs1 = round_registers(regs0, ctx)
+    if round_registers(regs1, ctx) != regs1:
+        raise RuntimeError("fused IPA: the round's transcript schedule does "
+                           f"not return to its registers {regs1}")
+    c = window or msm_mod.pick_window(2 * n + 2)
+    key = (n, c, ctx.cv.name)
+    rounds, pre = _fused_memo.get(
+        key, (msm_mod.occupancy_guess(n + 1, ctx, c), 0))
+    if table32 is None and pre == 0:
+        table32 = msm_mod.point_table(pts_dev, ctx, affine, ec_kernel)
+    state = torch.as_tensor(snap, device=dev)
+    while True:
+        with _timed("ipa_fused_kernel", dev):
+            out = _ipa_fused_rounds(state, pts_dev, A, B, Gf_m, Hf_m, ctx,
+                                    c, rounds, pre, (regs0, regs1), affine,
+                                    ec_kernel, table32)
+        with _timed("ipa_fused_fetch", dev):
+            host = out.cpu().numpy()
+        occ = int(host[-1])
+        if occ <= rounds:
+            break
+        rounds, pre = msm_mod._escalate(occ, rounds, pre)
+    _fused_memo[key] = (rounds, pre)
+
+    lr = host[:lg_n * 2 * PB].reshape(lg_n, 2, PB).astype(np.uint8)
+    ab = fd.limbs_to_ints(host[lg_n * 2 * PB:-201].reshape(2, fr.L).T)
+    vecs = ([], [])
+    for j in range(lg_n):
+        for side in (0, 1):
+            raw = lr[j, side].tobytes()
+            try:
+                vecs[side].append(G1.from_bytes(raw, ctx.cv))
+            except AssertionError as e:
+                raise RuntimeError(
+                    f"fused IPA: bad {'LR'[side]} bytes at round {j} of "
+                    f"{lg_n} (n = {n}, c = {c}, rounds = {rounds}, pre = "
+                    f"{pre}): {raw[:24].hex()}...: {e}") from None
+    sched = round_schedule(ctx) * lg_n
+    DeviceTranscript.writeback(transcript, host[-201:-1],
+                               *replay_positions(transcript, sched))
+    return (vecs[0], vecs[1], Scalar(ab[0], ctx.cv),
+            Scalar(ab[1], ctx.cv))
+
+
+def create_ipp_implicit(transcript, Gf_m, Hf_m, pts_dev, A, B, ctx,
+                        window=None, affine=False, ec_kernel="chunk",
+                        table32=None, fused=None):
+    """The device IPA prover with implicit basis folding.
+
+    pts_dev: (3, L, 2n+2) table [G | H | Q | identity] (Montgomery); Gf_m,
+    Hf_m: (Lr, n) Montgomery G/H factors; A, B: (Lr, n) Montgomery a and
+    b; window, ec_kernel, table32: as `_create_ipp_per_round`.  Returns
+    (L_vec, R_vec, a, b).
+
+    fused=True runs every round and the Fiat-Shamir transcript on the
+    device (`create_ipp_implicit_fused`); fused=False runs one MSM and one
+    host transcript step a round (`_create_ipp_per_round`).  The two give
+    the same bytes.  The default, None, is fused on a card and per round
+    on the CPU, where there is no host synchronisation to save and the
+    plain versions of the fused path's kernels cost ~5x the host's Horner
+    and transcript.  Edwards-serialized curves (ed25519) always take the
+    per-round path: their transcripts absorb Edwards coordinates, which
+    the device serializer does not emit.  A failing fused IPA raises."""
+    kw = dict(window=window, affine=affine, ec_kernel=ec_kernel,
+              table32=table32)
+    if fused is None:
+        fused = A.device.type == "cuda"
+    if ctx.cv.ed_d is None and fused:
+        return create_ipp_implicit_fused(transcript, Gf_m, Hf_m, pts_dev,
+                                         A, B, ctx, **kw)
+    return _create_ipp_per_round(transcript, Gf_m, Hf_m, pts_dev, A, B, ctx,
+                                 **kw)
+
+
 def create_ipp_device(transcript, Q, G_factors, H_factors, G_vec, H_vec,
-                      a_vec, b_vec, device="cuda", ec_kernel="chunk"):
+                      a_vec, b_vec, device="cuda", ec_kernel="chunk",
+                      fused=None):
     """Host lists in, (L_vec, R_vec, a, b) out: the implicit-basis IPA on
-    `device`, with the transcript schedule of `ipp.rs:35-202`."""
+    `device` (`create_ipp_implicit`, fused by default on a card), with the
+    transcript schedule of `ipp.rs:35-202`."""
     ctx = CurveCtx(curve())
     fr = ctx.fr
     pts, affine, table32 = _ipa_table(G_vec, H_vec, Q, ctx, device,
                                       ec_kernel)
-    return _create_ipp_per_round(
+    return create_ipp_implicit(
         transcript, _mont(fr, G_factors, device),
         _mont(fr, H_factors, device), pts, _mont(fr, a_vec, device),
         _mont(fr, b_vec, device), ctx, affine=affine, ec_kernel=ec_kernel,
-        table32=table32)
+        table32=table32, fused=fused)
 
 
 def _ipa_table(G_vec, H_vec, Q, ctx, device, ec_kernel="chunk"):
@@ -573,10 +729,11 @@ def _phase_table(G, H, h, ctx, device):
 # R1CS: the device prover
 # ---------------------------------------------------------------------------
 
-def prove_device(prover, G, H, device="cuda"):
+def prove_device(prover, G, H, device="cuda", fused=None):
     """`Prover.prove` (`prover.rs:322-593`) on `device`: the transcript and
     blinding schedule of the JAX package's `Prover._prove` and
-    `prove_device`, so the proof bytes are theirs for the same rng."""
+    `prove_device`, so the proof bytes are theirs for the same rng.
+    fused: the IPA's form (`create_ipp_implicit`)."""
     from ..r1cs.proof import R1CSProof
     from ..ipp import InnerProductArgumentProof
     from ..utils.errors import InvalidGeneratorsLength
@@ -714,9 +871,9 @@ def prove_device(prover, G, H, device="cuda"):
 
     pts_ipa, aff_ipa, table32 = _ipa_table(G[:padded_n], H[:padded_n], Q,
                                            ctx, dev)
-    L_vec, R_vec, a_fin, b_fin = _create_ipp_per_round(
+    L_vec, R_vec, a_fin, b_fin = create_ipp_implicit(
         tr, Gf_m, Hf_m, pts_ipa, l_vec, r_vec, ctx, affine=aff_ipa,
-        table32=table32)
+        table32=table32, fused=fused)
 
     return R1CSProof(A_I1=A_I1, A_O1=A_O1, S1=S1, A_I2=A_I2, A_O2=A_O2,
                      S2=S2, T_1=T_1, T_3=T_3, T_4=T_4, T_5=T_5, T_6=T_6,

@@ -151,10 +151,13 @@ class Prover(ConstraintSystem):
             for cb in callbacks:
                 cb(wrapped)
 
-    def prove(self, G, H):
-        """`prover.rs:322-593` on `self.device` -> R1CSProof."""
+    def prove(self, G, H, fused=None):
+        """`prover.rs:322-593` on `self.device` -> R1CSProof.  fused: the
+        IPA's form (`ops/prover_device.py: create_ipp_implicit`; the
+        default runs it fused on a card and per round on the CPU); the
+        proofs are equal."""
         from ..ops.prover_device import prove_device
-        return prove_device(self, G, H, device=self.device)
+        return prove_device(self, G, H, device=self.device, fused=fused)
 
 
 class RandomizingProver(RandomizedConstraintSystem):

@@ -1,6 +1,7 @@
 """Drive the PyTorch/CUDA port on one NVIDIA card: build its kernels, hold
 each kernel against its plain PyTorch version, and run the n = 2^16 device
-Pippenger MSM, the n = 2^16 inner-product argument (prove and verify), the
+Pippenger MSM, the n = 2^16 inner-product argument (prove and verify;
+fused, every round and its transcript on the card, against per-round), the
 aggregated range proof (R1CS prove and verify, m = 16 values of 64 bits,
 n = 2048), the Poseidon / sparse-Merkle-tree workloads (bulk hashing,
 batch updates, the depth-12 SMT-4 leaf-inclusion proof), the batch
@@ -11,9 +12,10 @@ every other gadget's proof of BLS12-381 end to end.
 
 Phases, each printing one JSON line with its seconds:
   0 device   the card's name and power limit (nvidia-smi);
-  1 build    nvcc of csrc/ec_kernels.cu and csrc/mxu_kernels.cu, in
-             parallel, into ctypes libraries; ptxas's registers, stack
-             and spills; kernel 5's SASS holds IMMA and no IDP.4A;
+  1 build    nvcc of csrc/ec_kernels.cu, csrc/mxu_kernels.cu and
+             csrc/transcript_kernels.cu, in parallel, into ctypes
+             libraries; ptxas's registers, stack and spills; kernel 5's
+             SASS holds IMMA and no IDP.4A;
   2 kernels  each kernel against its plain version at the width each path
              gives it (bit-exact; kernel 5 also against kernel 4): the
              bucket kernels from a packed point table of the path's size
@@ -22,11 +24,13 @@ Phases, each printing one JSON line with its seconds:
              rows, kernel 4 at the IPA's, kernel 3 pairwise and its
              sequential forms (the
              folds, row and column sums, window totals and Horner of the
-             combine) at the range proof's and the MSM's combine shapes;
-             with the bare kernel's time on operands prepared beforehand
-             (`ms`), the wrapper's time with its checks and any 16/32-bit
-             limb packing (`wrapper_ms`), the plain version's time and the
-             card's bound for the same work;
+             combine) at the range proof's and the MSM's combine shapes,
+             and the fused IPA's `bp_ipa_challenge` on a projective point
+             and the identity from a transcript whose round crosses the
+             STROBE rate; with the bare kernel's time on operands
+             prepared beforehand (`ms`), the wrapper's time with its
+             checks and any 16/32-bit limb packing (`wrapper_ms`), the
+             plain version's time and the card's bound for the same work;
              after the paths, the bucket kernel and the combine's forms
              again at the shapes of each MSM that phase 7 ran (`kernels_at`:
              kernel 2 at the witness's and the IPA's pre-reduced tables,
@@ -39,12 +43,13 @@ Phases, each printing one JSON line with its seconds:
                    pre-reduction, so the projective bucket kernel and the
                    batched add run too;
   5 ipa      the standalone IPA at n (the bench's config 3: 256 hash-derived
-             G and H bases repeated to n, unit factors): prove 1 + 3 times
-             with the chunked bucket kernels, the per-stage seconds of one
-             more proof, a host check of the proof in Python ints that does
-             not use the device verifier, `verify_ipp` 1 + 3 times, a
-             tampered proof rejected, and one proof with the per-round
-             bucket kernel, byte-identical to the chunked one;
+             G and H bases repeated to n, unit factors), fused (the
+             default): prove 1 + 3 times with the chunked bucket kernels,
+             the per-stage seconds of one more proof, a host check of the
+             proof in Python ints that does not use the device
+             verifier, `verify_ipp` 1 + 3 times, a tampered proof
+             rejected, and one proof with the per-round bucket kernel,
+             byte-identical to the chunked one;
   6 r1cs     the bench's config 2: m = 16 aggregated 64-bit range proofs,
              n = 2048, `get_generators("G"/"H", 2048)`: prove 1 + 3 times
              (seeds 1-4), the stages of one more proof, the seed-2 proof's
@@ -52,6 +57,17 @@ Phases, each printing one JSON line with its seconds:
              (tests/vectors/torch_r1cs_agg16.json), a host check through
              `Verifier._verify` over `msm_host`, `verify_device` 1 + 3
              times, and t_x + 1 rejected;
+ 6b ipa_fused  the fused IPA against the per-round one (`fused=False`:
+             `msm_hybrid` and the host transcript each round) on phase 5's
+             input: 1 + 3 proofs of each in turns, all byte-identical,
+             each path's p50 and the stages of one more proof of each;
+             the same turns of phase 6's seed-2 statement, every proof's
+             sha256 the JAX package's; one traced IPA proof of each
+             (device busy, idle share); one warm fused IPA under
+             torch.cuda.set_sync_debug_mode("error") from its first launch
+             to its one fetch; after the paths, `bp_ipa_challenge` against
+             its plain version at the first two rounds' real L and R
+             (`kernel_at_path`);
   7 smt      the bench's Poseidon / SMT sections at their sizes
              (tests/vectors/torch_smt4_d12.json): `poseidon_hash_4_batch`
              over 8192 child lists (hashes/s, 64 checked on the host); two
@@ -82,12 +98,13 @@ Phases, each printing one JSON line with its seconds:
              proof's sha256 against the JAX package's, the statement
              tampered rejected; after the paths, the bucket kernel and the
              combine's forms at the shapes of its MSMs (`kernels_at`);
- 11 launches the launch counts of each path (phases 3-4, 5, 6, 7, 9, 10,
-             8), kernel 3's also by form, each kernel of a path (and each
+ 11 launches the launch counts of each path (phases 3-4, 5, 6, 6b, 7, 9,
+             10, 8), kernel 3's also by form, each kernel of a path (and each
              form of kernel 3 the path runs, `PATHS`) required > 0 there,
              and the counts of one range proof and verification, one IPA
-             proof and verification, one SMT-4 proof and verification, one
-             batch check and each gadget's proof and verification.
+             proof and verification, one fused and one per-round IPA
+             proof, one SMT-4 proof and verification, one batch check
+             and each gadget's proof and verification.
 The last line is {"ok": true, "device": {...}}.  Any failure raises and
 exits non-zero before it.  Without a CUDA card the script exits 2.
 """
@@ -108,6 +125,8 @@ import bulletproofs_tpu_torch as bt
 from bulletproofs_tpu_torch.config import BLS381, using_curve
 from bulletproofs_tpu_torch.ipp import verification_scalars
 from bulletproofs_tpu_torch.ops import build, ec_kernels as ek
+from bulletproofs_tpu_torch.ops import transcript_kernels as tk
+from bulletproofs_tpu_torch.ops.transcript_device import DeviceTranscript
 from bulletproofs_tpu_torch.ops import msm as msm_mod
 from bulletproofs_tpu_torch.ops import prover_device
 from bulletproofs_tpu_torch.ops.ec import (CurveCtx, content_digest,
@@ -146,28 +165,39 @@ REPLACES = {
     "ec_add": "bulletproofs_tpu/ops/ec_pallas.py:499",
     "bucket_round_add": "bulletproofs_tpu/ops/ec_pallas.py:469",
     "bucket_round_add_mxu": "bulletproofs_tpu/ops/ec_pallas.py:217",
+    # XLA code, not a Pallas kernel: the device transcript and keccak that
+    # the JAX package's fused IPA traces into its program
+    "ipa_challenge": "bulletproofs_tpu/ops/transcript_device.py:129 "
+                     "(DeviceTranscript, serialize_points :273), "
+                     "bulletproofs_tpu/ops/keccak_jax.py:60",
 }
 SOURCES = {name: KERNEL_SOURCE for name in REPLACES}
 SOURCES["bucket_round_add_mxu"] = "bulletproofs_tpu_torch/csrc/mxu_kernels.cu"
+SOURCES["ipa_challenge"] = "bulletproofs_tpu_torch/csrc/transcript_kernels.cu"
 # The kernels each path launches, kernel 3 by form (`launch_counts`): the
-# MSM phases 3-4, the IPA phase 5, the range proof phase 6, the sparse
-# Merkle tree phase 7, the race of kernels 5 and 4 (phase 8), the batch
-# verifiers (phase 9) and the gadgets (phase 10).  Each must launch on its
-# path.
+# MSM phases 3-4, the IPA phase 5, the range proof phase 6, the fused IPA
+# against the per-round one (phase 6b), the sparse Merkle tree phase 7, the
+# race of kernels 5 and 4 (phase 8), the batch verifiers (phase 9) and the
+# gadgets (phase 10).  Each must launch on its path.  Every proof's IPA
+# runs fused: its MSMs end in the Horner form on the card, and each round
+# launches `bp_ipa_challenge`.
+_FUSED_IPA = ("ec_add:horner", "ipa_challenge")
 PATHS = {
     "msm": ("bucket_rounds_mixed", "bucket_rounds_proj", "ec_add:pairwise",
             "ec_add:gather_sum", "ec_add:window_totals", "ec_add:horner"),
     "ipa": ("bucket_rounds_mixed", "bucket_round_add", "ec_add:gather_sum",
-            "ec_add:window_totals"),
+            "ec_add:window_totals") + _FUSED_IPA,
+    "ipa_fused": ("bucket_rounds_mixed", "ec_add:gather_sum",
+                  "ec_add:window_totals") + _FUSED_IPA,
     "r1cs": ("bucket_rounds_mixed", "ec_add:pairwise", "ec_add:gather_sum",
-             "ec_add:window_totals"),
+             "ec_add:window_totals") + _FUSED_IPA,
     "smt": ("bucket_rounds_mixed", "bucket_rounds_proj", "ec_add:pairwise",
-            "ec_add:gather_sum", "ec_add:window_totals"),
+            "ec_add:gather_sum", "ec_add:window_totals") + _FUSED_IPA,
     "batch": ("bucket_rounds_mixed", "bucket_rounds_proj", "ec_add:pairwise",
-              "ec_add:gather_sum", "ec_add:window_totals", "ec_add:horner"),
+              "ec_add:gather_sum", "ec_add:window_totals") + _FUSED_IPA,
     "gadgets": ("bucket_rounds_mixed", "bucket_rounds_proj",
                 "ec_add:pairwise", "ec_add:gather_sum",
-                "ec_add:window_totals"),
+                "ec_add:window_totals") + _FUSED_IPA,
     "mxu_race": ("bucket_round_add_mxu", "bucket_round_add"),
 }
 # kernel 3's forms in phase 2 -> the kernel form each launches
@@ -509,8 +539,12 @@ def phase_kernels(device, n, seed, reps=5, r1cs_msm_n=4098):
     cases += form_cases(ctx, proj, gen, device, [
         ("r1cs", combine_shapes(r1cs_msm_n, 2)),
         ("msm", combine_shapes(n, 1, horner=True))])
+    cases.append(challenge_case(ctx, proj[:, :, :1], device))
 
     records = {}
+    # kernel 3's form shapes checked so far (`form_key`): a later path's
+    # MSM of the same form shape is not checked again
+    forms_seen = set()
 
     def check(name, kernel, plain, args, bare, work, shape):
         """One case's kernel bit-exact against its plain version, timed,
@@ -519,13 +553,11 @@ def phase_kernels(device, n, seed, reps=5, r1cs_msm_n=4098):
         got = kernel(*args, ctx)
         _sync(device)
         plain_ms, want = time_ms(lambda: plain(*args, ctx), device, 1)
-        if got.shape != want.shape or not torch.equal(got, want):
-            err = int((got.long() - want.long()).abs().max()) \
-                if got.shape == want.shape else -1
+        err = max_abs_err(got, want)
+        if err:
             raise AssertionError(f"{name} at {shape}: kernel differs from "
                                  f"its plain version (max abs word error "
-                                 f"{err})")
-        err = 0
+                                 f"{err}, -1: shapes differ)")
         wrapper_ms, _ = time_ms(lambda: kernel(*args, ctx), device, reps)
         ms = None                         # the bare kernel: on the card only
         if device.type == "cuda":
@@ -548,6 +580,8 @@ def phase_kernels(device, n, seed, reps=5, r1cs_msm_n=4098):
             records[name] = {**rec, "shape": shape}
 
     for case in cases:
+        if "form" in case[-1]:
+            forms_seen.add(form_key(case[-1]))
         check(*case)
 
     # kernel 5 computes kernel 4's function: the same words
@@ -580,13 +614,15 @@ def phase_kernels(device, n, seed, reps=5, r1cs_msm_n=4098):
         """The bucket kernel and kernel 3's sequential forms at the shapes
         of the MSMs a path ran, each (points, sets, c, rounds, pre) as
         `msm_shapes` lists them, or (points, sets, c, rounds, pre, affine,
-        horner) as `device_msm_shapes` does: at S = W'*B slots of `window_plan(n_sets=sets, dup=True)`
-        and the rounds of one launch, kernel 2 from a pre-reduced table of
-        W'*points rows where the MSM pre-reduced, or from a projective
+        horner) as `device_msm_shapes` does: at S = W'*B slots of
+        `window_plan(n_sets=sets, dup=True)` and the rounds of one launch,
+        kernel 2 from a pre-reduced table of W'*points rows where the MSM
+        pre-reduced, or from a projective
         table of `points` rows where its table is not affine, else kernel 1
         from an affine table of `points` rows; the combine's forms at its
-        shapes (Horner where the MSM ran it on the card).  Into `records`
-        under `other_shapes` and `forms`."""
+        shapes (Horner where the MSM ran it on the card), each form shape
+        once in the run (`form_key`).  Into `records` under
+        `other_shapes` and `forms`."""
         t1 = time.time()
         for points, sets, c_k, rounds, pre, *more in msms:
             affine_msm, horner = more or (True, False)
@@ -609,11 +645,84 @@ def phase_kernels(device, n, seed, reps=5, r1cs_msm_n=4098):
                    "R_c": R_k, "pre": pre, "table_rows": rows,
                    "affine": affine_msm})
             for case in form_cases(ctx, proj, gen, device, [(path, sh)]):
-                check(*case)
+                if form_key(case[-1]) not in forms_seen:
+                    forms_seen.add(form_key(case[-1]))
+                    check(*case)
         emit({"phase": "kernels_at", "path": path, "msms": msms,
               "seconds": time.time() - t1})
 
     return records, check_msms
+
+
+def form_key(shape):
+    """A kernel-3 form case's shape without its path: two MSMs with equal
+    keys run the form on operands of the same shapes and index tables
+    (the window plan is fixed by the curve, c and the set count)."""
+    return json.dumps({k: v for k, v in shape.items() if k != "path"},
+                      sort_keys=True)
+
+
+def max_abs_err(got, want):
+    """The largest absolute word difference between a kernel's result and
+    its plain version's (tensors or tuples of them), -1 where a shape
+    differs."""
+    if isinstance(got, tuple):
+        return max(max_abs_err(g, w) for g, w in zip(got, want))
+    if got.shape != want.shape:
+        return -1
+    return int((got.long() - want.long()).abs().max()) if got.numel() else 0
+
+
+def challenge_work(ctx):
+    """(bytes, IMADs) of the function `bp_ipa_challenge` computes, not of
+    the kernel's own chains: its operands read and its results written
+    once; the IMADs of the Montgomery products it needs: in Fp, one
+    inversion for both Zs (Montgomery's trick: 3 products) by the
+    square-and-multiply chain of p - 2 (bit length - 1 squarings,
+    popcount - 1 products), and per point two products into affine form
+    and two out of Montgomery form; in Fr, the challenge's two reduction
+    products (R^2 and R^3 mod r constants) and the chain of r - 2.  The
+    keccak permutations' logic operations (~10^4 a launch) are not
+    counted."""
+    nlp, nlr = ctx.fp.L // 2, ctx.fr.L // 2
+    pb = 2 * ctx.cv.modbytes + 1
+    n_bytes = 3 * nlp * 2 * 4 + 200 * 8 + (2 * pb + 200 + 2 * ctx.fr.L) * 8
+    chain = lambda mod: ((mod - 2).bit_length() - 1
+                         + bin(mod - 2).count("1") - 1)
+    fp_muls = chain(ctx.cv.p) + 3 + 2 * 4
+    fr_muls = 2 + chain(ctx.cv.r)
+    return n_bytes, (fp_muls * imad_per_mont_mul(ctx)
+                     + fr_muls * 2 * (2 * nlr * nlr + nlr))
+
+
+def challenge_bare(ctx, device):
+    """A bare-launch factory of `bp_ipa_challenge` into fresh outputs."""
+    def make(args):
+        outs = (torch.empty((2, 2 * ctx.cv.modbytes + 1), dtype=torch.int64,
+                            device=device),
+                torch.empty(200, dtype=torch.int64, device=device),
+                torch.empty((2, ctx.fr.L, 1), dtype=torch.int64,
+                            device=device))
+        return lambda: tk.ipa_challenge32(*outs, *args, ctx)
+    return make
+
+
+def challenge_case(ctx, L, device):
+    """Phase 2's case of `bp_ipa_challenge`: the points L (a projective
+    point, Z != 1) and R the identity, from a transcript whose round
+    crosses the STROBE rate inside L's bytes, so keccak-f runs mid-message
+    (the starting position is between 60 and 120)."""
+    pts32 = pack32(torch.cat([L, ctx.identity_like((1,), device)], dim=2),
+                   1).contiguous()
+    tr = bt.ProofTranscript(b"chip_smoke")
+    while not 60 <= tr.strobe.pos <= 120:
+        tr.append_message(b"pad", bytes(7))
+    snap, *regs = DeviceTranscript.snapshot(tr)
+    return ("ipa_challenge", tk.ipa_challenge, tk.ipa_challenge_plain,
+            (pts32, torch.as_tensor(snap, device=device), tuple(regs)),
+            challenge_bare(ctx, device), challenge_work(ctx),
+            {"points": 2, "R": "identity", "start_pos": regs[0],
+             "crosses_rate": True})
 
 
 def form_cases(ctx, proj, gen, device, paths):
@@ -689,17 +798,17 @@ def form_cases(ctx, proj, gen, device, paths):
                        "G": G, "K": K, "dbl": dbl}))
         if sh["horner"]:
             totals = points(W)
-            c = sh["c"]
+            c, sets = sh["c"], sh["sets"]
 
-            def bare_horner(args):
-                out = torch.empty((3, nl, 1), dtype=torch.int32,
+            def bare_horner(args, sets=sets):
+                out = torch.empty((3, nl, sets), dtype=torch.int32,
                                   device=device)
                 return lambda: ek.ec_horner32(out, *args, ctx)
             cases.append(("ec_add", ek.ec_horner, ek.ec_horner_plain,
-                          (totals, W, c), bare_horner,
-                          ((W + 1) * pt_bytes, W * (c + 1) * add),
-                          {"form": "horner", "path": path, "sets": 1,
-                           "wps": W, "c": c}))
+                          (totals, W // sets, c), bare_horner,
+                          ((W + sets) * pt_bytes, W * (c + 1) * add),
+                          {"form": "horner", "path": path, "sets": sets,
+                           "wps": W // sets, "c": c}))
     return cases
 
 
@@ -911,6 +1020,174 @@ def phase_ipa(device, n, seed, reps):
           "round_kernel_proof_identical": True, "setup_seconds": setup,
           "a": proof.a.to_bytes().hex()[-32:], "seconds": time.time() - t0})
     return per_call
+
+
+def phase_ipa_fused(device, n, seed, reps, records, r1cs=None):
+    """The fused IPA (every round on the device, one launch of
+    `bp_ipa_challenge` a round, one fetch) against the per-round one
+    (`fused=False`: `msm_hybrid` and the host transcript each round) at n,
+    phase 5's input: 1 + reps proofs of each in turns (fused, per-round,
+    per-round, fused, ...), every proof byte-identical; the stages of one
+    more of each; r1cs = (m, bits, ref): the same turns of phase 6's
+    statement of seed ref["seed"], `Prover.prove(fused=...)`, each proof's
+    sha256 ref["sha256"]; on the card one traced proof of each (device busy and
+    idle share) and one warm fused IPA under
+    `torch.cuda.set_sync_debug_mode("error")` from its first launch to its
+    fetch (`prover_device._ipa_fused_rounds`), its bytes the proof's.
+    Returns the launches of one proof of each and `check`, which holds
+    `bp_ipa_challenge` against its plain version at the first two rounds'
+    real L and R (into `records["ipa_challenge"]["at_path"]`); main runs
+    it after the paths, outside their counts."""
+    t0 = time.time()
+    label = b"ipa_smoke"
+    Gb, Hb, Q, a, b, _ = _ipa_input(n, seed)
+    m = len(Gb)
+    G = [Gb[i % m] for i in range(n)]
+    H = [Hb[i % m] for i in range(n)]
+    ones = [Scalar.one(BLS381)] * n
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    per_call = {}
+
+    def prove(fused, profile=False):
+        """-> (proof bytes, seconds, the proof)."""
+        prover_device._prof.enabled = profile
+        before = launch_counts()
+        t1 = time.time()
+        try:
+            proof = bt.create_ipp(bt.ProofTranscript(label), Q, ones, ones,
+                                  G, H, a, b, device=device, fused=fused)
+        finally:
+            prover_device._prof.enabled = False
+        dt = time.time() - t1
+        per_call["fused" if fused else "per_round"] = {
+            k: v - before[k] for k, v in launch_counts().items()}
+        return _proof_bytes(proof), dt, proof
+
+    want, first_fused, proof = prove(True)
+    got, first_round, _ = prove(False)
+    if got != want:
+        raise AssertionError("ipa_fused: the per-round proof differs")
+    times = {True: [], False: []}
+    for fused in ([True, False, False, True] * reps)[:2 * reps]:
+        got, dt, _ = prove(fused)
+        if got != want:
+            raise AssertionError("ipa_fused: proofs of one input differ")
+        times[fused].append(dt)
+    stages = {}
+    for fused in (True, False):
+        prover_device._prof.take()
+        _, dt, _ = prove(fused, profile=True)
+        st = prover_device._prof.take()
+        st["other"] = dt - sum(st.values())
+        stages["fused" if fused else "per_round"] = st
+    t1 = time.time()
+    for pt in proof.L + proof.R:
+        G1.from_bytes(pt.to_bytes(), BLS381)
+    decode = time.time() - t1
+    p50 = lambda ts, first: sorted(ts)[len(ts) // 2] if ts else first
+    r1cs_out = {}
+    if r1cs is not None:
+        m_r, bits, ref = r1cs
+        Gr = bt.get_generators("G", m_r * 2 * bits)
+        Hr = bt.get_generators("H", m_r * 2 * bits)
+        g, h = G1.from_msg_hash(b"g", BLS381), G1.from_msg_hash(b"h", BLS381)
+        r_times = {True: [], False: []}
+        for fused in [True, False] + ([True, False, False, True] * reps)[
+                :2 * reps]:
+            prover, _ = _agg_range_prover(ref["seed"], m_r, bits, g, h,
+                                          device)
+            t1 = time.time()
+            digest = hashlib.sha256(prover.prove(Gr, Hr, fused=fused)
+                                    .to_bytes()).hexdigest()
+            r_times[fused].append(time.time() - t1)
+            if digest != ref["sha256"]:
+                raise AssertionError(f"ipa_fused: the r1cs proof (fused = "
+                                     f"{fused}) has sha256 {digest}, the "
+                                     f"JAX package's {ref['sha256']}")
+        for fused, key in ((True, "fused"), (False, "round")):
+            ts = r_times[fused]
+            r1cs_out[f"r1cs_{key}_prove_first_seconds"] = ts[0]
+            r1cs_out[f"r1cs_{key}_prove_seconds_p50"] = p50(ts[1:], ts[0])
+        r1cs_out["r1cs_prove_seconds_turns"] = {
+            "fused": r_times[True], "per_round": r_times[False]}
+        r1cs_out["r1cs_matches_reference"] = True
+    out = {"phase": "ipa_fused", "n": n, "bases": m,
+           "ipa_fused_prove_first_seconds": first_fused,
+           "ipa_fused_prove_seconds_p50": p50(times[True], first_fused),
+           "ipa_round_prove_first_seconds": first_round,
+           "ipa_round_prove_seconds_p50": p50(times[False], first_round),
+           "prove_seconds_turns": {"fused": times[True],
+                                   "per_round": times[False]},
+           "stage_seconds": stages, "lr_decode_seconds": decode,
+           "launches_per_call": per_call, "proofs_identical": True,
+           **r1cs_out}
+
+    ctx = CurveCtx(BLS381)
+    fr = ctx.fr
+    c = msm_mod.pick_window(2 * n + 2)
+    rounds, pre = prover_device._fused_memo[(n, c, ctx.cv.name)]
+    tr = bt.ProofTranscript(label)
+    tr.innerproduct_domain_sep(n)
+    snap, *regs0 = DeviceTranscript.snapshot(tr)
+    regs = (tuple(regs0), tk.round_registers(regs0, ctx))
+    pts, affine, table32 = prover_device._ipa_table(G, H, Q, ctx, device)
+    mont = lambda v: prover_device._mont(fr, v, device)
+    A, B, ones_m = mont(a), mont(b), mont(ones)
+    state = torch.as_tensor(snap, device=device)
+    if on_card:
+        for fused in (True, False):
+            _, out["trace_" + ("fused" if fused else "per_round")] = trace(
+                lambda: prove(fused))
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            res = prover_device._ipa_fused_rounds(
+                state, pts, A, B, ones_m, ones_m, ctx, c, rounds, pre, regs,
+                affine, "chunk", table32)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        lr = bytes(res.cpu()[:len(proof.L) * 2 * (2 * ctx.cv.modbytes + 1)]
+                   .to(torch.uint8).tolist())
+        if lr != b"".join(L + R for L, R in zip(want[0], want[1])):
+            raise AssertionError("ipa_fused: the run under the sync check "
+                                 "gave other bytes")
+        out["host_syncs_between_launch_and_fetch"] = 0
+    emit({**out, "rounds": rounds, "pre": pre, "seconds": time.time() - t0})
+
+    def check():
+        """`bp_ipa_challenge` against its plain version on the first two
+        rounds' real operands: round 1's combined L and R at the snapshot's
+        registers, and again at the later rounds' registers on the state
+        round 1 leaves."""
+        t1 = time.time()
+        scal2 = prover_device._ipa_round_scalars(A, B, ones_m, ones_m, n, fr)
+        LR, _ = msm_mod.msm_sets_device(pts, scal2, ctx, c, rounds, pre,
+                                        affine, "chunk", table32)
+        rows, outs, st = [], [], state
+        for r in regs:
+            outs.append(tk.ipa_challenge(LR, st, r, ctx))
+            plain_ms, plain = time_ms(
+                lambda: tk.ipa_challenge_plain(LR, st, r, ctx), device, 1)
+            err = max_abs_err(outs[-1], plain)
+            if err:
+                raise AssertionError(f"ipa_challenge at regs {r}: kernel "
+                                     f"differs from its plain version "
+                                     f"({err})")
+            ms = time_ms(challenge_bare(ctx, device)((LR, st, r)), device,
+                         5)[0] if on_card else None
+            rows.append({"regs": list(r), "max_abs_err": err, "ms": ms,
+                         "plain_ms": plain_ms})
+            st = outs[-1][1]
+        if [bytes(x.tolist()) for x in outs[0][0]] != [want[0][0],
+                                                       want[1][0]]:
+            raise AssertionError("ipa_challenge: round 1's bytes are not the "
+                                 "proof's L and R")
+        records["ipa_challenge"]["at_path"] = rows
+        emit({"phase": "kernel_at_path", "name": "ipa_challenge", "n": n,
+              "rounds": rows, "seconds": time.time() - t1})
+
+    return {"launches": per_call, "check": check}
 
 
 def _agg_range_prover(seed, m, bits, g, h, device):
@@ -1145,12 +1422,10 @@ def phase_smt(device, ref, n_bulk, reps):
     out["setup_seconds"] = time.time() - t1
 
     per_call = {}
-    # the escalation memo starts empty for the proofs, so that it lists
-    # every MSM shape they run (`msm_shapes`); earlier entries come back
+    # the MSM memos start empty for the proofs, so that they list every
+    # MSM shape the proofs run (`msm_shapes`); earlier entries come back
     # after
-    memo = msm_mod._escalation_memo
-    earlier = dict(memo)
-    memo.clear()
+    earlier = clear_msm_memos()
 
     def counted(kind, fn):
         before = launch_counts()
@@ -1226,11 +1501,10 @@ def phase_smt(device, ref, n_bulk, reps):
     # the round counts and pre-reduction passes that the MSMs of the proof
     # and its verification settled on, by shape
     msms = msm_shapes()
-    for k, v in earlier.items():
-        memo.setdefault(k, v)
+    restore_msm_memos(earlier)
     out["msm_escalation"] = {
-        f"points={n},sets={k},c={c}": {"rounds": r, "pre": pre}
-        for n, k, c, r, pre in msms}
+        f"points={m[0]},sets={m[1]},c={m[2]}": {"rounds": m[3], "pre": m[4]}
+        for m in msms}
     emit({**out, "n_bulk": n_bulk, "updates": upd["batch"], "n": pr["n"],
           "proof_sha256": digest, "matches_reference": True,
           "root_matches_reference": True, "tampered_rejected": True,
@@ -1515,9 +1789,7 @@ def phase_gadgets(device, ref):
     cv = BLS381
     g, h = G1.from_msg_hash(b"g", cv), G1.from_msg_hash(b"h", cv)
     per_call, rows, proofs = {}, {}, {}
-    memo = msm_mod._escalation_memo
-    earlier = dict(memo)
-    memo.clear()
+    earlier = clear_msm_memos()
     for name, spec in ref["gadgets"].items():
         t1 = time.time()
         G = bt.get_generators("G", spec["n"])
@@ -1555,8 +1827,7 @@ def phase_gadgets(device, ref):
                       "tampered_rejected": True}
         proofs[name] = (proof, comms)
     msms = msm_shapes()
-    for key, v in earlier.items():
-        memo.setdefault(key, v)
+    restore_msm_memos(earlier)
     emit({"phase": "gadgets", "gadgets": rows, "matches_reference": True,
           "launches_per_call": per_call, "seconds": time.time() - t0})
     return {"launches": per_call, "msms": msms, "proofs": proofs}
@@ -1564,10 +1835,36 @@ def phase_gadgets(device, ref):
 
 def msm_shapes():
     """The MSM shapes in `msm._escalation_memo`, with the rounds and
-    pre-reduction passes that `msm_hybrid` settled on for each:
-    [(points, sets, c, rounds, pre)]."""
+    pre-reduction passes that `msm_hybrid` settled on for each, then the
+    fused IPAs' two-set MSMs in `prover_device._fused_memo` (over 2n + 2
+    points, an affine table, the Horner on the card):
+    [(points, sets, c, rounds, pre)] and [(points, 2, c, rounds, pre,
+    True, True)]."""
     return [(k[0], k[1], k[2], *v) for k, v in
-            msm_mod._escalation_memo.items()]
+            msm_mod._escalation_memo.items()] + \
+        [(2 * k[0] + 2, 2, k[1], *v, True, True) for k, v in
+         prover_device._fused_memo.items()]
+
+
+def _shape_memos():
+    return msm_mod._escalation_memo, prover_device._fused_memo
+
+
+def clear_msm_memos():
+    """Empty the memos `msm_shapes` reads, so that it lists every shape
+    run after: -> their earlier entries, for `restore_msm_memos`."""
+    earlier = [dict(memo) for memo in _shape_memos()]
+    for memo in _shape_memos():
+        memo.clear()
+    return earlier
+
+
+def restore_msm_memos(earlier):
+    """Put back the entries `clear_msm_memos` took that no later run
+    replaced."""
+    for memo, old in zip(_shape_memos(), earlier):
+        for key, v in old.items():
+            memo.setdefault(key, v)
 
 
 def device_msm_shapes():
@@ -1719,6 +2016,9 @@ def main():
                 "cuda", args.n, args.seed + 2, reps=3), per_call),
             "r1cs": _run_path("r1cs", lambda: phase_r1cs(
                 "cuda", ref["m"], ref["bits"], 3, ref), per_call),
+            "ipa_fused": _run_path("ipa_fused", lambda: phase_ipa_fused(
+                "cuda", args.n, args.seed + 2, 3, records,
+                (ref["m"], ref["bits"], ref)), per_call),
             "smt": _run_path("smt", lambda: phase_smt(
                 "cuda", smt_ref, 8192, 3), per_call),
             "batch": _run_path("batch", lambda: phase_batch(
@@ -1733,11 +2033,15 @@ def main():
             res = per_call[path]
             per_call[path] = res["launches"]
             check_msms(path, res["msms"])   # outside the paths' counts
+        per_call["ipa_fused"].pop("check")()  # outside the paths' counts
+        fused_calls = per_call["ipa_fused"]["launches"]
         add_launches(records, by_path)
         emit({"phase": "launches", "launches": by_path,
               "per_r1cs_proof": per_call["r1cs"]["prove"],
               "per_r1cs_verify": per_call["r1cs"]["verify"],
               "per_ipa_proof": per_call["ipa"]["prove_chunk"],
+              "per_ipa_fused_proof": fused_calls["fused"],
+              "per_ipa_round_proof": fused_calls["per_round"],
               "per_ipa_verify": per_call["ipa"]["verify"],
               "per_smt_proof": per_call["smt"]["prove"],
               "per_smt_verify": per_call["smt"]["verify"],

@@ -2,7 +2,8 @@
 Merkle trees on the card: each kernel against its plain PyTorch version,
 word for word (kernel 5 also against kernel 4), the MSM against exact-int
 host sums, IPA, range and SMT-4 proofs against the port's own CPU runs,
-byte for byte, and the batched Poseidon against its CPU run.  Every test is
+byte for byte, the fused IPA against the per-round one, and the batched
+Poseidon against its CPU run.  Every test is
 marked `cuda` and skips without a card.
 
 This file imports neither jax nor the JAX package, so on a machine without
@@ -21,7 +22,10 @@ from bulletproofs_tpu_torch.config import BLS381, BN254
 from bulletproofs_tpu_torch.ops import ec as E
 from bulletproofs_tpu_torch.ops import ec_kernels as ek
 from bulletproofs_tpu_torch.ops import msm as M
+from bulletproofs_tpu_torch.ops import prover_device as PD
+from bulletproofs_tpu_torch.ops import transcript_kernels as tk
 from bulletproofs_tpu_torch.ops.field import pack32, unpack32
+from bulletproofs_tpu_torch.ops.transcript_device import DeviceTranscript
 from bulletproofs_tpu_torch.ops.field_host import inner_product
 
 CURVES = {"bls381": BLS381, "bn254": BN254}
@@ -361,6 +365,99 @@ def test_ipa_on_card_matches_cpu(ec_kernel, curve, cuda_device):
                         + [inner_product(a, b)])
         bt.verify_ipp(n, bt.ProofTranscript(b"card"), Gf, Hf, P, Q, G, H,
                       proof.a, proof.b, proof.L, proof.R)
+
+
+def _challenge_cases(cv, device):
+    """`bp_ipa_challenge` operands: (L projective with Z != 1, R the
+    identity) from a transcript whose round crosses the STROBE rate inside
+    L's bytes, and two random points at the registers every later IPA round
+    starts from."""
+    ctx = E.CurveCtx(cv)
+    rnd = random.Random(60)
+    p1, p2, p3 = (bt.G1.random(rnd, cv) for _ in range(3))
+    tr = bt.ProofTranscript(b"card-challenge")
+    while not 60 <= tr.strobe.pos <= 120:
+        tr.append_message(b"pad", bytes(7))
+    snap, *regs = DeviceTranscript.snapshot(tr)
+    state = torch.as_tensor(snap, device=device)
+    later = tk.round_registers(tuple(regs), ctx)
+    return ctx, [
+        (E.to_device_points([p1 + p2, bt.G1.identity(cv)], ctx, device),
+         state, tuple(regs)),
+        (E.to_device_points([p3, p1], ctx, device), state, later)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("curve", sorted(CURVES))
+def test_ipa_challenge_matches_plain_on_card(curve, cuda_device):
+    """`bp_ipa_challenge` bit-exact against its plain version on the same
+    card tensors and on the CPU: the point bytes (the identity's (0, 1)
+    among them), the state after a round that crosses the rate, u and
+    u^-1; one launch a call."""
+    ctx, cases = _challenge_cases(CURVES[curve], cuda_device)
+    for pts, state, regs in cases:
+        pts32 = pack32(pts, 1).contiguous()
+        ek.reset_launches()
+        got = tk.ipa_challenge(pts32, state, regs, ctx)
+        torch.cuda.synchronize()
+        assert ek.launches["ipa_challenge"] == 1
+        plain = tk.ipa_challenge_plain(pts32, state, regs, ctx)
+        cpu = tk.ipa_challenge(pts32.cpu(), state.cpu(), regs, ctx)
+        for g, p, c in zip(got, plain, cpu):
+            assert g.dtype == torch.int64 and torch.equal(g, p)
+            assert torch.equal(g.cpu(), c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("curve", sorted(CURVES))
+def test_fused_ipa_on_card_matches_per_round(curve, cuda_device):
+    """At n = 2^10 the fused IPA, the default on the card, gives the
+    per-round path's proof bytes and transcript continuation, launches
+    `bp_ipa_challenge` once a round, and a warm run makes no host
+    synchronisation from its first launch to its fetch
+    (`set_sync_debug_mode("error")`)."""
+    cv = CURVES[curve]
+    n = 1 << 10
+    rnd = random.Random(41)
+    with bt.using_curve(cv):
+        G, H = bt.get_generators("G", n), bt.get_generators("H", n)
+        Q = bt.G1.from_msg_hash(b"Q", cv)
+        a, b, Gf, Hf = ([bt.Scalar.random(rnd, cv) for _ in range(n)]
+                        for _ in range(4))
+        out = {}
+        for fused in (None, False):       # None: the default, fused here
+            tr = bt.ProofTranscript(b"card-fused")
+            ek.reset_launches()
+            proof = bt.create_ipp(tr, Q, Gf, Hf, G, H, a, b, fused=fused)
+            out[fused] = ([p.to_bytes() for p in proof.L],
+                          [p.to_bytes() for p in proof.R], proof.a.v,
+                          proof.b.v, tr.challenge_scalar(b"post").v)
+            assert ek.launches["ipa_challenge"] == (10 if fused is None
+                                                    else 0)
+        assert out[None] == out[False]
+
+        ctx = E.CurveCtx(cv)
+        fr = ctx.fr
+        c = M.pick_window(2 * n + 2)
+        rounds, pre = PD._fused_memo[(n, c, cv.name)]
+        tr = bt.ProofTranscript(b"card-fused")
+        tr.innerproduct_domain_sep(n)
+        snap, *regs = DeviceTranscript.snapshot(tr)
+        regs = (tuple(regs), tk.round_registers(tuple(regs), ctx))
+        pts, affine, table32 = PD._ipa_table(G, H, Q, ctx, cuda_device)
+        ops = [PD._mont(fr, v, cuda_device) for v in (a, b, Gf, Hf)]
+        state = torch.as_tensor(snap, device=cuda_device)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            res = PD._ipa_fused_rounds(state, pts, *ops, ctx, c, rounds, pre,
+                                       regs, affine, "chunk", table32)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        PB = 2 * cv.modbytes + 1
+        lr = res.cpu()[:10 * 2 * PB].reshape(10, 2, PB)
+        assert [bytes(x.tolist()) for x in lr[:, 0]] == out[None][0]
+        assert [bytes(x.tolist()) for x in lr[:, 1]] == out[None][1]
 
 
 @pytest.mark.cuda

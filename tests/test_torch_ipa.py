@@ -12,6 +12,7 @@ its native host path; every comparison is exact, bytes or limbs.  Each JAX
 function is compiled once per shape: the proofs are made once per module.
 """
 
+import hashlib
 import importlib
 import json
 import random
@@ -399,3 +400,33 @@ def test_chip_smoke_ipa_phase_rehearses_on_cpu(capsys):
     assert line["tampered_rejected"] and line["round_kernel_proof_identical"]
     assert set(line["ipa_prove_stage_seconds"]) == {
         "ipa_scal", "ipa_msm", "ipa_transcript", "ipa_final"}
+
+
+def test_chip_smoke_ipa_fused_phase_rehearses_on_cpu(capsys):
+    """Phase 6b at n = 2 on the CPU: the fused and per-round IPA proofs and
+    the r1cs statement's (m = 1 value of 2 bits; its reference digest the
+    port's own per-round proof) agree, each path's stages are reported,
+    and `check` holds the plain challenge round against itself at the
+    proof's first L and R, with no kernel launched."""
+    chip_smoke = importlib.import_module("chip_smoke")
+    with config.using_curve(CV):
+        G, H = bt.get_generators("G", 4), bt.get_generators("H", 4)
+        g, h = bt.G1.from_msg_hash(b"g", CV), bt.G1.from_msg_hash(b"h", CV)
+        prover, _ = chip_smoke._agg_range_prover(2, 1, 2, g, h, "cpu")
+        ref = {"seed": 2, "sha256": hashlib.sha256(
+            prover.prove(G, H, fused=False).to_bytes()).hexdigest()}
+        records = {"ipa_challenge": {}}
+        ek.reset_launches()
+        res = chip_smoke.phase_ipa_fused("cpu", 2, 9, 0, records, (1, 2, ref))
+        res["check"]()
+    assert ek.launches == {k: 0 for k in ek.launches}
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    line = next(x for x in lines if x.get("phase") == "ipa_fused")
+    assert line["proofs_identical"] and line["r1cs_matches_reference"]
+    assert set(line["stage_seconds"]["fused"]) == {
+        "ipa_fused_kernel", "ipa_fused_fetch", "other"}
+    assert "ipa_transcript" in line["stage_seconds"]["per_round"]
+    assert set(res["launches"]) == {"fused", "per_round"}
+    rows = records["ipa_challenge"]["at_path"]
+    assert len(rows) == 2 and all(r["max_abs_err"] == 0 for r in rows)
+    assert rows[1]["regs"] == [CV.modbytes, 0, 7]
