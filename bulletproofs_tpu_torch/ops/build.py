@@ -53,6 +53,8 @@ SOURCES = {
     CSRC / "transcript_kernels.cu": {
         "bp_ipa_challenge": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
                              _P),
+        "bp_ipa_challenge_timed": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                   _P, _P, _P, _P),
     },
 }
 

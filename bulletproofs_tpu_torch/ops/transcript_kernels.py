@@ -12,7 +12,10 @@ fused IPA program (`bulletproofs_tpu/ops/transcript_device.py`,
 program it would be thousands of launches a round.
 
 For CPU tensors the wrapper runs the plain version; for CUDA tensors it
-launches the kernel, or raises (no fallback).
+launches the kernel, or raises (no fallback).  `ipa_challenge_split`
+launches the kernel's timed form (`bp_ipa_challenge_timed`, the same
+kernel writing lane 0's clock stamps) for the split of its time; it is a
+measurement, not counted in `launches`.
 """
 
 import functools
@@ -20,9 +23,9 @@ import functools
 import numpy as np
 import torch
 
-from . import field as fd
+from . import build, field as fd
 from .ec import CurveCtx
-from .ec_kernels import _consts, _launch, _on_card, _require_contiguous
+from .ec_kernels import _launch, _on_card, _require_contiguous
 from .field import unpack32
 from .transcript_device import DeviceTranscript, schedule_positions, \
     serialize_points
@@ -57,27 +60,55 @@ def ipa_challenge_plain(pts32, state, regs, ctx: CurveCtx):
 
 
 @functools.cache
-def _fr_consts(ctx: CurveCtx):
-    """Host uint32 words [r, R mod r, -r^-1 mod 2^32, 0, R^2 mod r,
-    R^3 mod r]: the kernel's Fr constants."""
-    fr = ctx.fr
-    nl = fr.L // 2
+def _kernel_consts(fctx):
+    """Host uint32 words [m, R mod m, -m^-1 mod 2^32, 0, R^2 mod m,
+    R^3 mod m] of one field (Fp or Fr): the kernel's constants, R^3 for
+    its inversions' return to Montgomery form."""
+    m = fctx.mod_int
+    nl = fctx.L // 2
     words = lambda v: [(v >> (32 * k)) & 0xFFFFFFFF for k in range(nl)]
-    n0inv = (-pow(fr.mod_int, -1, 1 << 32)) % (1 << 32)
-    r3 = fr.fp.mont_r2 * fr.fp.mont_one % fr.mod_int
-    return np.array(words(fr.mod_int) + words(fr.fp.mont_one) + [n0inv, 0]
-                    + words(fr.fp.mont_r2) + words(r3), dtype=np.uint32)
+    n0inv = (-pow(m, -1, 1 << 32)) % (1 << 32)
+    r3 = fctx.fp.mont_r2 * fctx.fp.mont_one % m
+    return np.array(words(m) + words(fctx.fp.mont_one) + [n0inv, 0]
+                    + words(fctx.fp.mont_r2) + words(r3), dtype=np.uint32)
+
+
+def _operands(out_bytes, out_state, out_u, pts32, state, regs, ctx):
+    return (out_bytes.data_ptr(), out_state.data_ptr(), out_u.data_ptr(),
+            pts32.data_ptr(), state.data_ptr(), regs[0], regs[1],
+            ctx.fp.L // 2, ctx.fr.L // 2, ctx.cv.modbytes,
+            _kernel_consts(ctx.fp).ctypes.data,
+            _kernel_consts(ctx.fr).ctypes.data)
 
 
 def ipa_challenge32(out_bytes, out_state, out_u, pts32, state, regs,
                     ctx: CurveCtx):
     """The kernel on CUDA operands, unchecked: writes out_bytes (2, PB),
     out_state (200,) and out_u (2, Lr, 1), all int64."""
-    _launch("bp_ipa_challenge", "ipa_challenge", out_bytes.data_ptr(),
-            out_state.data_ptr(), out_u.data_ptr(), pts32.data_ptr(),
-            state.data_ptr(), regs[0], regs[1], ctx.fp.L // 2,
-            ctx.fr.L // 2, ctx.cv.modbytes, _consts(ctx).ctypes.data,
-            _fr_consts(ctx).ctypes.data)
+    _launch("bp_ipa_challenge", "ipa_challenge",
+            *_operands(out_bytes, out_state, out_u, pts32, state, regs, ctx))
+
+
+# the spans between the kernel's clock64() stamps (`bp_ipa_challenge_timed`)
+SPLIT = ("fp_inversion", "serialize", "absorb_keccak_squeeze", "reduce_u",
+         "fr_inversion", "write_u")
+
+
+def ipa_challenge_split(out_bytes, out_state, out_u, pts32, state, regs,
+                        ctx: CurveCtx):
+    """One launch of the kernel's timed form on CUDA operands, for
+    measurement only (not counted in `launches`): -> lane 0's clock
+    cycles in each span of `SPLIT`."""
+    stamps = torch.zeros(7, dtype=torch.int64, device=pts32.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    rc = build.load().bp_ipa_challenge_timed(
+        *_operands(out_bytes, out_state, out_u, pts32, state, regs, ctx),
+        stamps.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"bp_ipa_challenge_timed: CUDA error {rc} at "
+                           "launch")
+    t = stamps.tolist()
+    return dict(zip(SPLIT, (b - a for a, b in zip(t, t[1:]))))
 
 
 def ipa_challenge(pts32, state, regs, ctx: CurveCtx):

@@ -9,13 +9,20 @@ verifiers (8 range proofs in one check, 4 IPA proofs in one check) and
 every other gadget's proof of BLS12-381 end to end.
 
     python3 chip_smoke.py [--seed S] [--n N]
+    python3 chip_smoke.py --trace-ipa REPS   # phase 6b's traces alone
+
+To compare two trees' fused IPA on one card, copy this file into the root
+of the other tree and run `python3 chip_smoke.py --trace-ipa 2` from each
+root in turns (parent, change, change, parent): each copy traces the
+package of the tree it stands in.
 
 Phases, each printing one JSON line with its seconds:
   0 device   the card's name and power limit (nvidia-smi);
   1 build    nvcc of csrc/ec_kernels.cu, csrc/mxu_kernels.cu and
              csrc/transcript_kernels.cu, in parallel, into ctypes
-             libraries; ptxas's registers, stack and spills; kernel 5's
-             SASS holds IMMA and no IDP.4A;
+             libraries; ptxas's registers, stack and spills (those of
+             `bp_ipa_challenge` again on their own line, `kernel_ptxas`,
+             and in its record); kernel 5's SASS holds IMMA and no IDP.4A;
   2 kernels  each kernel against its plain version at the width each path
              gives it (bit-exact; kernel 5 also against kernel 4): the
              bucket kernels from a packed point table of the path's size
@@ -31,6 +38,8 @@ Phases, each printing one JSON line with its seconds:
              prepared beforehand (`ms`), the wrapper's time with its
              checks and any 16/32-bit limb packing (`wrapper_ms`), the
              plain version's time and the card's bound for the same work;
+             `bp_ipa_challenge`'s time by span (`kernel_split`: its timed
+             form's clock64() stamps, `tk.SPLIT`);
              after the paths, the bucket kernel and the combine's forms
              again at the shapes of each MSM that phase 7 ran (`kernels_at`:
              kernel 2 at the witness's and the IPA's pre-reduced tables,
@@ -65,8 +74,11 @@ Phases, each printing one JSON line with its seconds:
              sha256 the JAX package's; one traced IPA proof of each
              (device busy, idle share); one warm fused IPA under
              torch.cuda.set_sync_debug_mode("error") from its first launch
-             to its one fetch; after the paths, `bp_ipa_challenge` against
-             its plain version at the first two rounds' real L and R
+             to its one fetch; each trace's device ms of its costliest
+             kernels and of `bp_ipa_challenge`; after the paths,
+             `bp_ipa_challenge` against its plain version at the first two
+             rounds' real L and R, with its bound there, its bare and
+             wrapper times (3 runs of 50 launches each) and split
              (`kernel_at_path`);
   7 smt      the bench's Poseidon / SMT sections at their sizes
              (tests/vectors/torch_smt4_d12.json): `poseidon_hash_4_batch`
@@ -141,7 +153,8 @@ from bulletproofs_tpu_torch.models.helper_constraints.poseidon import (
 from bulletproofs_tpu_torch.models.helper_constraints.\
     sparse_merkle_tree_4_ary import VanillaSparseMerkleTree_4
 from bulletproofs_tpu_torch.ops import poseidon_device
-from bulletproofs_tpu_torch.ops.field import pack32
+from bulletproofs_tpu_torch.ops.field import (limbs_to_ints, pack32,
+                                              unpack32)
 from bulletproofs_tpu_torch.ops.ec_host import G1, msm_host
 from bulletproofs_tpu_torch.ops.field_host import Scalar, inner_product
 from bulletproofs_tpu_torch.utils.errors import (BatchVerificationError,
@@ -342,6 +355,7 @@ def phase_build():
              for path, report in reports.items()}
     emit({"phase": "build", "ptxas": ptxas, "mxu_sass": mxu_sass(),
           "seconds": time.time() - t0})
+    return ptxas
 
 
 def _random_points(rnd, m, cv):
@@ -548,11 +562,12 @@ def phase_kernels(device, n, seed, reps=5, r1cs_msm_n=4098):
 
     def check(name, kernel, plain, args, bare, work, shape):
         """One case's kernel bit-exact against its plain version, timed,
-        into `records`."""
-        n_bytes, n_imad = work
+        into `records`.  work: (bytes, IMADs) of the function, or a
+        function of the plain version's result that gives them."""
         got = kernel(*args, ctx)
         _sync(device)
         plain_ms, want = time_ms(lambda: plain(*args, ctx), device, 1)
+        n_bytes, n_imad = work(want) if callable(work) else work
         err = max_abs_err(got, want)
         if err:
             raise AssertionError(f"{name} at {shape}: kernel differs from "
@@ -583,6 +598,13 @@ def phase_kernels(device, n, seed, reps=5, r1cs_msm_n=4098):
         if "form" in case[-1]:
             forms_seen.add(form_key(case[-1]))
         check(*case)
+    if device.type == "cuda":
+        ch = records["ipa_challenge"]
+        ch["split"] = challenge_split(
+            ctx, next(c for c in cases if c[0] == "ipa_challenge")[3],
+            ch["ms"])
+        emit({"phase": "kernel_split", "name": "ipa_challenge",
+              **ch["split"]})
 
     # kernel 5 computes kernel 4's function: the same words
     if not torch.equal(
@@ -673,26 +695,89 @@ def max_abs_err(got, want):
     return int((got.long() - want.long()).abs().max()) if got.numel() else 0
 
 
-def challenge_work(ctx):
-    """(bytes, IMADs) of the function `bp_ipa_challenge` computes, not of
-    the kernel's own chains: its operands read and its results written
-    once; the IMADs of the Montgomery products it needs: in Fp, one
-    inversion for both Zs (Montgomery's trick: 3 products) by the
-    square-and-multiply chain of p - 2 (bit length - 1 squarings,
-    popcount - 1 products), and per point two products into affine form
-    and two out of Montgomery form; in Fr, the challenge's two reduction
-    products (R^2 and R^3 mod r constants) and the chain of r - 2.  The
-    keccak permutations' logic operations (~10^4 a launch) are not
-    counted."""
+# 32-bit integer operations of one keccak-f1600: 24 rounds of 130
+# two-input 64-bit operations (theta 55, rho 24 rotations, chi 50, iota 1),
+# two 32-bit ones each.
+KECCAK_F_OPS = 24 * 130 * 2
+
+
+def safegcd_work(x, m):
+    """(batches, inner steps) of the variable-time safegcd that
+    `bp_ipa_challenge` inverts x mod m with (`inverse_var`): its batches of
+    30 divsteps, run here on Python ints (a batch's matrix applied to f
+    and g takes them where the same steps on the full values do), until
+    g = 0; an inner step is one cancelling multiple of f after the zero
+    bits are shifted out."""
+    eta, f, g, batches, inner = -1, m, x, 0, 0
+    while True:
+        batches += 1
+        i = 30
+        while True:
+            zeros = min((g & -g).bit_length() - 1, i) if g else i
+            g >>= zeros
+            eta -= zeros
+            i -= zeros
+            if i == 0:
+                break
+            inner += 1
+            if eta < 0:
+                eta, f, g = -eta, g, -f
+            bits = 1 << min(eta + 1, i)
+            g += f * (-g * pow(f, -1, bits) % bits)
+        if g == 0:
+            return batches, inner
+
+
+def round_permutations(pos, mb):
+    """keccak-f1600s of one IPA round's transcript from STROBE position
+    pos: its stream of 27 framing bytes and both points' 2 mb + 1 bytes
+    crosses the rate of 166 bytes, and the challenge forces one more
+    unless the stream ends on a crossing."""
+    return -(-(pos + 27 + 2 * (2 * mb + 1)) // 166)
+
+
+def challenge_work(ctx, pts32, regs, u_mont):
+    """(bytes, 32-bit integer operations) of the function
+    `bp_ipa_challenge` computes on these operands (pts32 the packed L and
+    R, regs the round's starting STROBE registers, u_mont the challenge's
+    Montgomery limbs its plain version returns), not of the kernel's own
+    chains.  Bytes: its operands read and its results written once.
+    Operations: the round's keccak-f1600s (`round_permutations` of
+    `KECCAK_F_OPS` each); the
+    Montgomery products (`imad_per_mont_mul` IMADs each): in Fp, per
+    point that is not the identity its Z's inverse from the shared one
+    (where both are points, after one product of the two Zs), X and Y into
+    affine form and out of Montgomery form, and the shared inverse's return
+    to Montgomery form; in Fr, the challenge's two reduction products and
+    its inverse's return; the two inversions as the safegcd's work on
+    these values (`safegcd_work`): a batch of 30 divsteps applies its
+    matrix to f, g, d and e, 10 N wide limb products (two IMADs each) on
+    N 30-bit limbs, and an inner step is ~11 IMADs (f's inverse mod 2^32
+    by Newton, the multiple, three updates)."""
     nlp, nlr = ctx.fp.L // 2, ctx.fr.L // 2
-    pb = 2 * ctx.cv.modbytes + 1
+    mb = ctx.cv.modbytes
+    pb = 2 * mb + 1
     n_bytes = 3 * nlp * 2 * 4 + 200 * 8 + (2 * pb + 200 + 2 * ctx.fr.L) * 8
-    chain = lambda mod: ((mod - 2).bit_length() - 1
-                         + bin(mod - 2).count("1") - 1)
-    fp_muls = chain(ctx.cv.p) + 3 + 2 * 4
-    fr_muls = 2 + chain(ctx.cv.r)
-    return n_bytes, (fp_muls * imad_per_mont_mul(ctx)
-                     + fr_muls * 2 * (2 * nlr * nlr + nlr))
+    perms = round_permutations(regs[0], mb)
+    p, r = ctx.cv.p, ctx.cv.r
+
+    def inverse_ops(x, m, nl):
+        batches, inner = safegcd_work(x, m)
+        return batches * 10 * ((32 * nl + 29) // 30) * 2 + inner * 11
+
+    zs = [z for z in limbs_to_ints(unpack32(pts32, 1)[2]) if z]
+    fp_muls, fp_inv = 5 * len(zs), 0
+    if zs:
+        z = zs[0]
+        if len(zs) == 2:          # Montgomery's trick: Z_L Z_R R^-1
+            z = zs[0] * zs[1] * pow(2, -32 * nlp, p) % p
+            fp_muls += 1
+        fp_muls += 1
+        fp_inv = inverse_ops(z, p, nlp)
+    u = limbs_to_ints(u_mont)[0]
+    fr_ops = 3 * 2 * (2 * nlr * nlr + nlr) + inverse_ops(u, r, nlr)
+    return n_bytes, (perms * KECCAK_F_OPS + fp_muls * imad_per_mont_mul(ctx)
+                     + fp_inv + fr_ops)
 
 
 def challenge_bare(ctx, device):
@@ -705,6 +790,26 @@ def challenge_bare(ctx, device):
                             device=device))
         return lambda: tk.ipa_challenge32(*outs, *args, ctx)
     return make
+
+
+def challenge_split(ctx, args, ms, reps=5):
+    """`bp_ipa_challenge`'s time by span (`tk.SPLIT`): the mean of lane
+    0's clock64() cycles in each span over reps launches of its timed form
+    on args (points, state, registers), each span's share of the stamped
+    cycles, and that share of the bare kernel's ms in microseconds."""
+    outs = (torch.empty((2, 2 * ctx.cv.modbytes + 1), dtype=torch.int64,
+                        device="cuda"),
+            torch.empty(200, dtype=torch.int64, device="cuda"),
+            torch.empty((2, ctx.fr.L, 1), dtype=torch.int64, device="cuda"))
+    spans = {k: 0 for k in tk.SPLIT}
+    for _ in range(reps):
+        got = tk.ipa_challenge_split(*outs, *args, ctx)
+        for k, v in got.items():
+            spans[k] += v / reps
+    total = sum(spans.values())
+    return {"cycles": spans, "stamped_cycles": total,
+            "share": {k: v / total for k, v in spans.items()},
+            "us": {k: ms * 1e3 * v / total for k, v in spans.items()}}
 
 
 def challenge_case(ctx, L, device):
@@ -720,7 +825,8 @@ def challenge_case(ctx, L, device):
     snap, *regs = DeviceTranscript.snapshot(tr)
     return ("ipa_challenge", tk.ipa_challenge, tk.ipa_challenge_plain,
             (pts32, torch.as_tensor(snap, device=device), tuple(regs)),
-            challenge_bare(ctx, device), challenge_work(ctx),
+            challenge_bare(ctx, device),
+            lambda want: challenge_work(ctx, pts32, regs, want[2][0]),
             {"points": 2, "R": "identity", "start_pos": regs[0],
              "crosses_rate": True})
 
@@ -1138,7 +1244,7 @@ def phase_ipa_fused(device, n, seed, reps, records, r1cs=None):
     if on_card:
         for fused in (True, False):
             _, out["trace_" + ("fused" if fused else "per_round")] = trace(
-                lambda: prove(fused))
+                lambda: prove(fused), watch=("ipa_challenge",))
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
@@ -1174,10 +1280,21 @@ def phase_ipa_fused(device, n, seed, reps, records, r1cs=None):
                 raise AssertionError(f"ipa_challenge at regs {r}: kernel "
                                      f"differs from its plain version "
                                      f"({err})")
-            ms = time_ms(challenge_bare(ctx, device)((LR, st, r)), device,
-                         5)[0] if on_card else None
-            rows.append({"regs": list(r), "max_abs_err": err, "ms": ms,
-                         "plain_ms": plain_ms})
+            row = {"regs": list(r), "max_abs_err": err, "ms": None,
+                   "wrapper_ms": None, "plain_ms": plain_ms,
+                   "bound_ms": bound(*challenge_work(ctx, LR, r,
+                                                     plain[2][0]))[0]}
+            if on_card:   # the bare kernel, the wrapper: 3 runs of 50 each
+                bare = challenge_bare(ctx, device)((LR, st, r))
+                row["ms_runs"] = [time_ms(bare, device, 50)[0]
+                                  for _ in range(3)]
+                row["wrapper_ms_runs"] = [time_ms(
+                    lambda: tk.ipa_challenge(LR, st, r, ctx), device, 50)[0]
+                    for _ in range(3)]
+                row["ms"] = sorted(row["ms_runs"])[1]
+                row["wrapper_ms"] = sorted(row["wrapper_ms_runs"])[1]
+                row["split"] = challenge_split(ctx, (LR, st, r), row["ms"])
+            rows.append(row)
             st = outs[-1][1]
         if [bytes(x.tolist()) for x in outs[0][0]] != [want[0][0],
                                                        want[1][0]]:
@@ -1306,10 +1423,12 @@ def smt_params(ref):
                            cv=BLS381), p["sbox"])
 
 
-def trace(run):
+def trace(run, watch=()):
     """Run run() once under torch.profiler on the card: -> (its result,
     {traced wall ms, device busy ms (kernels, copies and sets), idle share,
-    kernels, copies and sets})."""
+    kernels, copies and sets, the device ms of the 6 kernels (by name, cut
+    to 80 characters) that took the most, and for each name in watch the
+    device ms of the kernels whose names hold it})."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -1318,17 +1437,23 @@ def trace(run):
         out = run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    busy_us, kernels, copies = 0.0, 0, 0
+    busy_us, kernels, copies, by_name = 0.0, 0, 0, {}
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
-            busy_us += ev.time_range.elapsed_us()
+            us = ev.time_range.elapsed_us()
+            busy_us += us
+            by_name[ev.name] = by_name.get(ev.name, 0.0) + us
             if ev.name.startswith(("Memcpy", "Memset")):
                 copies += 1
             else:
                 kernels += 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     return out, {"traced_wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
                  "device_idle_share": 1 - busy_us / 1e3 / wall_ms,
-                 "device_kernels": kernels, "device_copies_and_sets": copies}
+                 "device_kernels": kernels, "device_copies_and_sets": copies,
+                 "device_ms_by_kernel": {k[:80]: v / 1e3 for k, v in top},
+                 "device_ms_of": {w: sum(v for k, v in by_name.items()
+                                         if w in k) / 1e3 for w in watch}}
 
 
 def phase_smt(device, ref, n_bulk, reps):
@@ -1988,19 +2113,59 @@ def add_launches(records, by_path):
         sub["launches_by_path"] = {p: c[key] for p, c in by_path.items()}
 
 
+def trace_ipa(n, seed, reps):
+    """`--trace-ipa REPS`: phase 6b's traces alone, so that two trees
+    compare in one call: a copy of this file in the root of each tree,
+    run there in turns, traces that tree's package.  Phase 5's input
+    proved fused and per round once each (warm, byte-identical), then reps
+    traced proofs of each in turns, one line a proof: traced wall ms,
+    device busy ms, idle share, the costliest kernels and
+    `bp_ipa_challenge`'s device ms."""
+    Gb, Hb, Q, a, b, _ = _ipa_input(n, seed)
+    m = len(Gb)
+    G = [Gb[i % m] for i in range(n)]
+    H = [Hb[i % m] for i in range(n)]
+    ones = [Scalar.one(BLS381)] * n
+
+    def prove(fused):
+        return bt.create_ipp(bt.ProofTranscript(b"ipa_smoke"), Q, ones, ones,
+                             G, H, a, b, device="cuda", fused=fused)
+
+    if _proof_bytes(prove(True)) != _proof_bytes(prove(False)):
+        raise AssertionError("trace_ipa: fused and per-round proofs differ")
+    for rep in range(reps):
+        for fused in (True, False):
+            _, row = trace(lambda: prove(fused), watch=("ipa_challenge",))
+            emit({"phase": "trace_ipa", "n": n, "rep": rep,
+                  "path": "fused" if fused else "per_round", **row})
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0xBE7C)
     ap.add_argument("--n", type=int, default=1 << 16)
+    ap.add_argument("--trace-ipa", type=int, default=0, metavar="REPS",
+                    help="only trace REPS fused and per-round IPA proofs "
+                         "in turns (phase 6b's traces)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(2)
+    if args.trace_ipa:
+        with using_curve(BLS381):
+            phase_device()
+            trace_ipa(args.n, args.seed + 2, args.trace_ipa)
+        return
     t_start = time.time()
     with using_curve(BLS381):
         kind, smi = phase_device()
-        phase_build()
+        ptxas = phase_build()
         records, check_msms = phase_kernels("cuda", args.n, args.seed)
+        records["ipa_challenge"]["ptxas"] = [
+            e for entries in ptxas.values() for e in entries
+            if e["kernel"].startswith("ipa_challenge_kernel")]
+        emit({"phase": "kernel_ptxas", "name": "ipa_challenge",
+              "ptxas": records["ipa_challenge"]["ptxas"]})
 
         def msm_path():
             phase_msm("cuda", args.n, args.seed, bits=False, reps=3)

@@ -20,6 +20,7 @@ import torch
 import bulletproofs_tpu_torch as bt
 from bulletproofs_tpu_torch.config import BLS381, BN254
 from bulletproofs_tpu_torch.ops import ec as E
+from bulletproofs_tpu_torch.ops import field as F
 from bulletproofs_tpu_torch.ops import ec_kernels as ek
 from bulletproofs_tpu_torch.ops import msm as M
 from bulletproofs_tpu_torch.ops import prover_device as PD
@@ -367,11 +368,35 @@ def test_ipa_on_card_matches_cpu(ec_kernel, curve, cuda_device):
                       proof.a, proof.b, proof.L, proof.R)
 
 
+def _boundary_pos(cv, lo, hi):
+    """The first starting pos whose IPA round meets the STROBE rate (166)
+    after stream byte k, lo <= k <= hi, of its absorbed stream: 9
+    framing bytes (label, u32 length, begin_op flags) and L's 2*mb + 1,
+    then the same for R, then u's 9 framing bytes."""
+    for pos in range(166):
+        if any(lo <= k <= hi for k in (166 - pos, 332 - pos)):
+            return pos
+    raise AssertionError(f"no round crosses the rate in [{lo}, {hi}]")
+
+
+def _projective(rnd, cv, pts):
+    """pts as random projective representatives (lambda X, lambda Y,
+    lambda Z): the serializer inverts a random Z."""
+    out = []
+    for P in pts:
+        lam = rnd.randrange(1, cv.p)
+        out.append(bt.G1(lam * P.X, lam * P.Y, lam * P.Z, cv))
+    return out
+
+
 def _challenge_cases(cv, device):
-    """`bp_ipa_challenge` operands: (L projective with Z != 1, R the
-    identity) from a transcript whose round crosses the STROBE rate inside
-    L's bytes, and two random points at the registers every later IPA round
-    starts from."""
+    """`bp_ipa_challenge` operands, (name, points, state, registers): L
+    projective with Z != 1 and R the identity from a transcript whose
+    round crosses the STROBE rate inside L's bytes; two random points at
+    the registers every later IPA round starts from; rounds whose rate
+    boundary falls inside L's framing bytes, R's framing, R's bytes and
+    u's framing (BLS12-381: its second boundary), each on a random state
+    and pos_begin; both points the identity."""
     ctx = E.CurveCtx(cv)
     rnd = random.Random(60)
     p1, p2, p3 = (bt.G1.random(rnd, cv) for _ in range(3))
@@ -381,10 +406,24 @@ def _challenge_cases(cv, device):
     snap, *regs = DeviceTranscript.snapshot(tr)
     state = torch.as_tensor(snap, device=device)
     later = tk.round_registers(tuple(regs), ctx)
-    return ctx, [
-        (E.to_device_points([p1 + p2, bt.G1.identity(cv)], ctx, device),
-         state, tuple(regs)),
-        (E.to_device_points([p3, p1], ctx, device), state, later)]
+    pb = 2 * cv.modbytes + 1
+    bounds = {"L_framing": (1, 9), "R_framing": (10 + pb, 18 + pb),
+              "R": (19 + pb, 18 + 2 * pb),
+              "u_framing": (19 + 2 * pb, 27 + 2 * pb)}
+    cases = [
+        ("L", E.to_device_points([p1 + p2, bt.G1.identity(cv)], ctx,
+                                 device), state, tuple(regs)),
+        ("later", E.to_device_points([p3, p1], ctx, device), state, later)]
+    for name, (lo, hi) in bounds.items():
+        pos = _boundary_pos(cv, lo, hi)
+        st = torch.as_tensor([rnd.randrange(256) for _ in range(200)],
+                             device=device)
+        pts = _projective(rnd, cv, [p1 + p3, p2])
+        cases.append((name, E.to_device_points(pts, ctx, device), st,
+                      (pos, rnd.randrange(pos + 2), 2)))
+    cases.append(("identities", E.to_device_points(
+        [bt.G1.identity(cv)] * 2, ctx, device), state, later))
+    return ctx, cases
 
 
 @pytest.mark.cuda
@@ -392,10 +431,11 @@ def _challenge_cases(cv, device):
 def test_ipa_challenge_matches_plain_on_card(curve, cuda_device):
     """`bp_ipa_challenge` bit-exact against its plain version on the same
     card tensors and on the CPU: the point bytes (the identity's (0, 1)
-    among them), the state after a round that crosses the rate, u and
+    among them), the state after rounds whose rate boundary falls in L's
+    bytes, in L's, R's or u's framing bytes and in R's bytes, u and
     u^-1; one launch a call."""
     ctx, cases = _challenge_cases(CURVES[curve], cuda_device)
-    for pts, state, regs in cases:
+    for name, pts, state, regs in cases:
         pts32 = pack32(pts, 1).contiguous()
         ek.reset_launches()
         got = tk.ipa_challenge(pts32, state, regs, ctx)
@@ -404,8 +444,57 @@ def test_ipa_challenge_matches_plain_on_card(curve, cuda_device):
         plain = tk.ipa_challenge_plain(pts32, state, regs, ctx)
         cpu = tk.ipa_challenge(pts32.cpu(), state.cpu(), regs, ctx)
         for g, p, c in zip(got, plain, cpu):
-            assert g.dtype == torch.int64 and torch.equal(g, p)
-            assert torch.equal(g.cpu(), c)
+            assert g.dtype == torch.int64 and torch.equal(g, p), name
+            assert torch.equal(g.cpu(), c), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("curve", sorted(CURVES))
+def test_ipa_challenge_random_rounds_match_host(curve, cuda_device):
+    """256 rounds at random registers, states and points (random
+    projective Z; now and then L, R or both the identity): the kernel's
+    point bytes are `G1.to_bytes`, its state the host `ProofTranscript`'s
+    after commit L, commit R, challenge u, and its u and u^-1 those of
+    `Scalar.from_bytes` of the host's challenge bytes, exactly."""
+    cv = CURVES[curve]
+    ctx = E.CurveCtx(cv)
+    fr = ctx.fr
+    rnd = random.Random(70)
+    base = [bt.G1.random(rnd, cv) for _ in range(8)]
+    n = 256
+    pairs = []
+    for i in range(n):
+        L, R = (base[rnd.randrange(8)] + base[rnd.randrange(8)]
+                for _ in range(2))
+        if i % 16 == 3 or i % 64 == 9:
+            L = bt.G1.identity(cv)
+        if i % 16 == 7 or i % 64 == 9:
+            R = bt.G1.identity(cv)
+        pairs.append(_projective(rnd, cv, [L, R]))
+    pts32 = pack32(E.to_device_points([P for pair in pairs for P in pair],
+                                      ctx, cuda_device), 1)
+    rounds, outs = [], []
+    for i in range(n):
+        pos = rnd.randrange(166)
+        regs = (pos, rnd.randrange(pos + 2), 2)
+        state = bytes(rnd.randrange(256) for _ in range(200))
+        st = torch.as_tensor(list(state), device=cuda_device)
+        rounds.append((regs, state))
+        outs.append(tk.ipa_challenge(
+            pts32[:, :, 2 * i:2 * i + 2].contiguous(), st, regs, ctx))
+    outs = [tuple(t.cpu() for t in o) for o in outs]
+    for (regs, state), (L, R), (pb, st, u) in zip(rounds, pairs, outs):
+        host = bt.ProofTranscript(b"card-rounds")
+        DeviceTranscript.writeback(host, list(state), *regs)
+        host.append_message(b"L", L.to_bytes())
+        host.append_message(b"R", R.to_bytes())
+        c = host.challenge_bytes(b"u", cv.modbytes)
+        assert [bytes(x.tolist()) for x in pb] == [L.to_bytes(),
+                                                   R.to_bytes()], regs
+        assert bytes(st.tolist()) == bytes(host.strobe.state), regs
+        want = bt.Scalar.from_bytes(c, cv)
+        assert F.limbs_to_ints(F.from_mont(u[:, :, 0].T, fr)) == [
+            want.v, want.inverse().v], regs
 
 
 @pytest.mark.cuda
