@@ -8,8 +8,9 @@ work runs in hand-written CUDA kernels for Hopper (`ops/ec_kernels.py`,
 `models`, the backend interface of the batch verifiers (`get_backend`,
 `set_backend`: `TorchBackend` on the device or the exact-int host), the
 batched device Poseidon (`ops/poseidon_device.py`) behind the
-trees' bulk updates, their Fiat-Shamir transcript, and the exact-int host
-types they are checked against.  The package imports neither JAX nor
+trees' bulk updates, their Fiat-Shamir transcript, the sharded MSM and
+prover over a mesh of devices (`parallel`), and the exact-int host types
+they are checked against.  The package imports neither JAX nor
 bulletproofs_tpu.
 """
 

@@ -193,6 +193,41 @@ def _slot_grid(digits, B, R, ranges=None, splits=None):
     return grid, found, int(occ)
 
 
+def _split_ranks(sorted_d, rank, ranges, splits):
+    """Sub-bucket spreading of `window_plan`: the entry of digit d and rank
+    t goes to bucket d + range * (t mod split) at round t // split.
+    -> (bucket, round) per entry; the digits are the buckets when splits
+    is None."""
+    if splits is None:
+        return sorted_d, rank
+    dev = sorted_d.device
+    ranges_t = _index_on(("ranges", tuple(ranges[:, 0].tolist())),
+                         lambda: ranges, dev)
+    splits_t = _index_on(("splits", tuple(splits[:, 0].tolist())),
+                         lambda: splits, dev)
+    return sorted_d + ranges_t * (rank % splits_t), rank // splits_t
+
+
+def _occupancy(sorted_d, rounds):
+    """The rounds a schedule needs: 1 + the largest round of a non-zero
+    digit (digit-0 entries are never scheduled), a 0-dim tensor."""
+    return torch.where(sorted_d == 0, 0, rounds).max() + 1
+
+
+def _max_occupancy(scalars, ctx, c):
+    """The rounds one bucket pass over `scalars` (Lr, n) needs under
+    `window_plan(ctx, c)` (no duplicate rows): the max non-zero bucket rank
+    after the sub-bucket split, as the slot grid counts it, a 0-dim tensor
+    on the scalars' device that is not read here.  The sharded MSM fixes
+    one round count for all shards from it (the JAX package's
+    `msm._max_occupancy`)."""
+    ranges, splits = window_plan(ctx, c)
+    sorted_d, rank, _ = _sorted_ranks(
+        fd.get_digits(scalars, c, _n_windows(ctx, c)))
+    return _occupancy(sorted_d, _split_ranks(sorted_d, rank, ranges,
+                                             splits)[1])
+
+
 def _sort_by(key, value):
     key, order = torch.sort(key, dim=-1, stable=True)
     return key, torch.gather(value, -1, order)
@@ -213,17 +248,8 @@ def _slot_grid_from(sorted_d, rank, values, B, R, ranges, splits, n):
     tensor on the device)."""
     W = sorted_d.shape[0]
     dev = sorted_d.device
-    if splits is not None:
-        ranges_t = _index_on(("ranges", tuple(ranges[:, 0].tolist())),
-                             lambda: ranges, dev)
-        splits_t = _index_on(("splits", tuple(splits[:, 0].tolist())),
-                             lambda: splits, dev)
-        bucket = sorted_d + ranges_t * (rank % splits_t)
-        rank = rank // splits_t
-    else:
-        bucket = sorted_d
-
-    occ = torch.where(sorted_d == 0, 0, rank).max() + 1
+    bucket, rank = _split_ranks(sorted_d, rank, ranges, splits)
+    occ = _occupancy(sorted_d, rank)
 
     real_key = torch.where((sorted_d == 0) | (rank >= R),
                            2 * (R * B + 1), (rank * B + bucket) * 2)
@@ -531,6 +557,13 @@ def combine_from_rowcol(rowsum, colsum, ctx: CurveCtx, c: int,
     return ec_horner(totals, wins_per_set or W, c, ctx)
 
 
+def combine_buckets(buckets, ctx: CurveCtx, c: int):
+    """The whole combine on the device: packed buckets (3, NL, W, B) of one
+    set -> its MSM total, packed (3, NL, 1)."""
+    rowsum, colsum = bucket_rowcol(buckets, ctx, c)
+    return combine_from_rowcol(rowsum, colsum, ctx, c)
+
+
 # ---------------------------------------------------------------------------
 # Top level
 # ---------------------------------------------------------------------------
@@ -557,10 +590,15 @@ def msm_totals(points, scalars, ctx: CurveCtx, c: int, n_rounds,
     if buckets is None:
         return None, occ
     rowsum, colsum = bucket_rowcol(buckets, ctx, c)
-    totals = unpack32(window_totals(rowsum, colsum, ctx, c), 1)
+    return plain_points(window_totals(rowsum, colsum, ctx, c), ctx), occ
+
+
+def plain_points(points32, ctx: CurveCtx):
+    """Packed Montgomery points (3, NL, m) -> plain-form limbs (3, L, m)."""
+    totals = unpack32(points32, 1)
     L, m = ctx.fp.L, totals.shape[2]
     plain = fd.from_mont(totals.permute(1, 0, 2).reshape(L, 3 * m), ctx.fp)
-    return plain.reshape(L, 3, m).permute(1, 0, 2), occ
+    return plain.reshape(L, 3, m).permute(1, 0, 2)
 
 
 def msm_sets_device(points, scalars, ctx: CurveCtx, c: int, n_rounds,
@@ -584,6 +622,16 @@ def msm_sets_device(points, scalars, ctx: CurveCtx, c: int, n_rounds,
     rowsum, colsum = bucket_rowcol(buckets, ctx, c)
     return combine_from_rowcol(rowsum, colsum, ctx, c,
                                wins_per_set=_n_windows(ctx, c)), occ
+
+
+def horner_sets(totals, ctx: CurveCtx, c: int, n_sets):
+    """Plain window totals (3, L, n_sets*W), one device fetch -> the
+    n_sets host G1 results, each set's window Horner in Python ints."""
+    W = totals.shape[2] // n_sets
+    ints = fd.limbs_to_ints(totals.permute(1, 2, 0))     # (L, S*W, 3)
+    wins = [tuple(ints[3 * j:3 * j + 3]) for j in range(n_sets * W)]
+    return [_horner(wins[s * W:(s + 1) * W], ctx.cv, c)
+            for s in range(n_sets)]
 
 
 def _horner(totals, cv, c):
@@ -616,7 +664,6 @@ def msm_hybrid(points_dev, scalars_multi, ctx: CurveCtx, c: int = None,
     S = scalars_multi.shape[0]
     if c is None:
         c = pick_window(n)
-    W = _n_windows(ctx, c)
     key = (n, S, c, ctx.cv.name, n_eff)
     rounds, pre = _escalation_memo.get(
         key, (occupancy_guess(n_eff or n, ctx, c), 0))
@@ -629,10 +676,7 @@ def msm_hybrid(points_dev, scalars_multi, ctx: CurveCtx, c: int = None,
             break
         rounds, pre = _escalate(occ, rounds, pre)
     _escalation_memo[key] = (rounds, pre)
-
-    ints = fd.limbs_to_ints(totals.permute(1, 2, 0))     # (L, S*W, 3)
-    wins = [tuple(ints[3 * j:3 * j + 3]) for j in range(S * W)]
-    return [_horner(wins[s * W:(s + 1) * W], ctx.cv, c) for s in range(S)]
+    return horner_sets(totals, ctx, c, S)
 
 
 def msm_device(points, scalars, ctx: CurveCtx, c: int, affine=False):
@@ -652,8 +696,7 @@ def msm_device(points, scalars, ctx: CurveCtx, c: int, affine=False):
             break
         rounds, pre = _escalate(occ, rounds, pre)
     _device_memo[(points.shape[2], c, ctx.cv.name, affine)] = (rounds, pre)
-    rowsum, colsum = bucket_rowcol(buckets, ctx, c)
-    return unpack32(combine_from_rowcol(rowsum, colsum, ctx, c), 1)
+    return unpack32(combine_buckets(buckets, ctx, c), 1)
 
 
 def msm(points, scalars, cv=None, device="cuda"):

@@ -126,7 +126,12 @@ def _mont(fr, vals, device):
 def _inner_mont(a, b, fr):
     """<a, b> over F_r along the last axis, Montgomery in and out: an
     elementwise product and a halving tree of modular adds."""
-    prod = fd.mont_mul(a, b, fr)
+    return _tree_sum(fd.mont_mul(a, b, fr), fr)
+
+
+def _tree_sum(prod, fr):
+    """The sum over F_r along the last axis by a halving tree of modular
+    adds: (Lr, ..., m) -> (Lr, ..., 1)."""
     n = prod.shape[-1]
     while n > 1:
         half = (n + 1) // 2
@@ -160,33 +165,46 @@ def _ipa_round_scalars(A, B, rG, rH, n_j, fr):
     for L, c_R for R).  A, B, rG, rH: (Lr, n) Montgomery."""
     Lr, n = A.shape
     half = n_j // 2
-    upper = _upper_half(n, n_j, A.device)
 
     # c_L = <a_lo, b_hi>, c_R = <a_hi, b_lo> of the first n_j block
     c = _inner_mont(torch.stack([A[:, :half], A[:, half:n_j]], dim=1),
                     torch.stack([B[:, half:n_j], B[:, :half]], dim=1),
                     fr)                             # (Lr, 2, 1)
-    prod = fd.mont_mul(torch.stack([_swap_halves(A, n_j),
-                                    _swap_halves(B, n_j)], dim=1),
-                       torch.stack([rG, rH], dim=1), fr)   # (Lr, 2, n)
-    prodG, prodH = prod[:, 0], prod[:, 1]
     zero = A.new_zeros((Lr, 1))
-    L_scal = torch.cat([torch.where(upper, prodG, 0),
-                        torch.where(upper, 0, prodH), c[:, 0], zero], dim=-1)
-    R_scal = torch.cat([torch.where(upper, 0, prodG),
-                        torch.where(upper, prodH, 0), c[:, 1], zero], dim=-1)
+    L_scal, R_scal = _lr_sets(_swap_halves(A, n_j), _swap_halves(B, n_j),
+                              rG, rH, _upper_half(n, n_j, A.device), fr,
+                              (c[:, 0], zero), (c[:, 1], zero))
     both = fd.from_mont(torch.stack([L_scal, R_scal], dim=1), fr)
     return both.permute(1, 0, 2).contiguous()       # (2, Lr, 2n+2)
+
+
+def _lr_sets(swapA, swapB, rG, rH, upper, fr, L_tail=(), R_tail=()):
+    """A round's L and R scalar sets over [G | H | tail], Montgomery
+    (Lr, 2m + tail): G takes swap(a) * rG on the upper half of each block
+    for L and on the lower for R, H takes swap(b) * rH on the other half.
+    swapA, swapB, rG, rH: (Lr, m) Montgomery; upper: (m,) bool; the tails
+    are (Lr, k) lanes appended to each set."""
+    prod = fd.mont_mul(torch.stack([swapA, swapB], dim=1),
+                       torch.stack([rG, rH], dim=1), fr)   # (Lr, 2, m)
+    prodG, prodH = prod[:, 0], prod[:, 1]
+    return (torch.cat([torch.where(upper, prodG, 0),
+                       torch.where(upper, 0, prodH), *L_tail], dim=-1),
+            torch.cat([torch.where(upper, 0, prodG),
+                       torch.where(upper, prodH, 0), *R_tail], dim=-1))
 
 
 def _ipa_round_update(A, B, rG, rH, u_m, u_inv_m, n_j, fr):
     """Fold a, b with the challenge u (Montgomery (Lr, 1)) over blocks of
     n_j, and multiply the running factors rG, rH by u or u^-1; rG and rH
     may be None (the last fold).  Returns (A, B, rG, rH)."""
-    n = A.shape[1]
-    upper = _upper_half(n, n_j, A.device)
-    swapA = _swap_halves(A, n_j)
-    swapB = _swap_halves(B, n_j)
+    return _fold(A, B, _swap_halves(A, n_j), _swap_halves(B, n_j), rG, rH,
+                 _upper_half(A.shape[1], n_j, A.device), u_m, u_inv_m, fr)
+
+
+def _fold(A, B, swapA, swapB, rG, rH, upper, u_m, u_inv_m, fr):
+    """`_ipa_round_update` given the halves' partners swapA, swapB (each
+    entry's counterpart in the other half of its block) and the (m,) mask
+    `upper` of the blocks' upper halves."""
     u = u_m.expand(A.shape)
     u_inv = u_inv_m.expand(A.shape)
     lhs = [torch.where(upper, swapA, A), torch.where(upper, A, swapA),
@@ -734,6 +752,39 @@ def prove_device(prover, G, H, device="cuda", fused=None):
     blinding schedule of the JAX package's `Prover._prove` and
     `prove_device`, so the proof bytes are theirs for the same rng.
     fused: the IPA's form (`create_ipp_implicit`)."""
+    dev = torch.device(device)
+
+    def commit_phase1(blinds, s_L, s_R, ctx):
+        n1 = len(prover.a_L)
+        with _timed("phase1_convert", dev):
+            pts1, aff1 = _phase_table(G[:n1], H[:n1], prover.h, ctx, dev)
+        with _timed("phase1_msm", dev):
+            return _phase_commitments(prover.a_L, prover.a_R, prover.a_O,
+                                      blinds, s_L, s_R, pts1, prover.h, ctx,
+                                      affine=aff1)
+
+    def prove_ipa(tr, Q, Gf_m, Hf_m, l_vec, r_vec, ctx):
+        N = l_vec.shape[-1]
+        pts_ipa, aff_ipa, table32 = _ipa_table(G[:N], H[:N], Q, ctx, dev)
+        return create_ipp_implicit(
+            tr, Gf_m, Hf_m, pts_ipa, l_vec, r_vec, ctx, affine=aff_ipa,
+            table32=table32, fused=fused)
+
+    return prove_schedule(prover, G, H, dev, commit_phase1, prove_ipa)
+
+
+def prove_schedule(prover, G, H, dev, commit_phase1, prove_ipa):
+    """The R1CS prover's schedule (`prover.rs:322-593`), shared by
+    `prove_device` and the sharded prover (`parallel/sharded_prover.py`):
+    the transcript, the rng draws, the phase-2 commitments, the z-fold,
+    t(x) and l(x)/r(x) on `dev`, with the two steps that differ passed in.
+
+    commit_phase1(blinds, s_L, s_R, ctx) -> (A_I1, A_O1, S1): the phase-1
+    witness commitments of `prover`'s first len(a_L) multipliers over
+    G, H and h, blinds = (i, o, s).
+    prove_ipa(transcript, Q, Gf_m, Hf_m, l_vec, r_vec, ctx) -> (L_vec,
+    R_vec, a, b): the IPA over G[:N], H[:N], N = l_vec's length, the
+    factors and vectors (Lr, N) Montgomery on `dev`."""
     from ..r1cs.proof import R1CSProof
     from ..ipp import InnerProductArgumentProof
     from ..utils.errors import InvalidGeneratorsLength
@@ -746,7 +797,6 @@ def prove_device(prover, G, H, device="cuda", fused=None):
     cv = prover.g.cv
     ctx = CurveCtx(cv)
     fr = ctx.fr
-    dev = torch.device(device)
 
     tr.append_u64(b"m", len(prover.v))
 
@@ -760,13 +810,8 @@ def prove_device(prover, G, H, device="cuda", fused=None):
     s_L1 = random_scalars(n1, rng)
     s_R1 = random_scalars(n1, rng)
 
-    with _timed("phase1_convert", dev):
-        pts1, aff1 = _phase_table(G[:n1], H[:n1], prover.h, ctx, dev)
-    with _timed("phase1_msm", dev):
-        A_I1, A_O1, S1 = _phase_commitments(
-            prover.a_L, prover.a_R, prover.a_O,
-            (i_blinding1, o_blinding1, s_blinding1), s_L1, s_R1, pts1,
-            prover.h, ctx, affine=aff1)
+    A_I1, A_O1, S1 = commit_phase1((i_blinding1, o_blinding1, s_blinding1),
+                                   s_L1, s_R1, ctx)
 
     tr.commit_point(b"A_I1", A_I1)
     tr.commit_point(b"A_O1", A_O1)
@@ -869,11 +914,8 @@ def prove_device(prover, G, H, device="cuda", fused=None):
                       _mont(fr, [u], dev).expand(fr.L, n2 + pad)], dim=-1)
     Hf_m = fd.mont_mul(y_inv_pows, Gf_m, fr)
 
-    pts_ipa, aff_ipa, table32 = _ipa_table(G[:padded_n], H[:padded_n], Q,
-                                           ctx, dev)
-    L_vec, R_vec, a_fin, b_fin = create_ipp_implicit(
-        tr, Gf_m, Hf_m, pts_ipa, l_vec, r_vec, ctx, affine=aff_ipa,
-        table32=table32, fused=fused)
+    L_vec, R_vec, a_fin, b_fin = prove_ipa(tr, Q, Gf_m, Hf_m, l_vec, r_vec,
+                                           ctx)
 
     return R1CSProof(A_I1=A_I1, A_O1=A_O1, S1=S1, A_I2=A_I2, A_O2=A_O2,
                      S2=S2, T_1=T_1, T_3=T_3, T_4=T_4, T_5=T_5, T_6=T_6,

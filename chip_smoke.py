@@ -5,8 +5,9 @@ fused, every round and its transcript on the card, against per-round), the
 aggregated range proof (R1CS prove and verify, m = 16 values of 64 bits,
 n = 2048), the Poseidon / sparse-Merkle-tree workloads (bulk hashing,
 batch updates, the depth-12 SMT-4 leaf-inclusion proof), the batch
-verifiers (8 range proofs in one check, 4 IPA proofs in one check) and
-every other gadget's proof of BLS12-381 end to end.
+verifiers (8 range proofs in one check, 4 IPA proofs in one check),
+every other gadget's proof, and the sharded MSM and prover on a mesh of
+4 shards of the card, of BLS12-381 end to end.
 
     python3 chip_smoke.py [--seed S] [--n N]
     python3 chip_smoke.py --trace-ipa REPS   # phase 6b's traces alone
@@ -110,13 +111,27 @@ Phases, each printing one JSON line with its seconds:
              proof's sha256 against the JAX package's, the statement
              tampered rejected; after the paths, the bucket kernel and the
              combine's forms at the shapes of its MSMs (`kernels_at`);
+ 12 sharded the sharded MSM and prover (`bulletproofs_tpu_torch.parallel`)
+             on `make_mesh([cuda:0] * 4)`, four shards of the one card:
+             `msm_sharded` on phase 3's input 1 + 3 times beside 1 + 3 of
+             `msm_device`, `msm_sharded_2d` on a 2 x 2 mesh once,
+             `msm_multi_sharded` on phase 4's bit vector 1 + 3 times (the
+             shards pre-reduce), each against the host sum; one
+             `msm_sharded` traced (the butterfly's device ms: its pairwise
+             adds); `create_ipp_sharded` on phase 5's input 1 + 1 times,
+             the bytes of phase 5's proof; `prove_sharded` on phase 6's
+             statements, seeds 1-4, the seed-2 proof's sha256 against the
+             JAX package's, `Verifier.verify` accepts it, t_x + 1
+             rejected, the stages of one more proof; after the paths, the
+             bucket kernels, kernel 3 pairwise and the combine's forms at
+             the per-shard shapes (`kernels_at`);
  11 launches the launch counts of each path (phases 3-4, 5, 6, 6b, 7, 9,
-             10, 8), kernel 3's also by form, each kernel of a path (and each
-             form of kernel 3 the path runs, `PATHS`) required > 0 there,
-             and the counts of one range proof and verification, one IPA
-             proof and verification, one fused and one per-round IPA
-             proof, one SMT-4 proof and verification, one batch check
-             and each gadget's proof and verification.
+             10, 8, 12), kernel 3's also by form, each kernel of a path (and
+             each form of kernel 3 the path runs, `PATHS`) required > 0
+             there, and the counts of one range proof and verification, one
+             IPA proof and verification, one fused and one per-round IPA
+             proof, one SMT-4 proof and verification, one batch check,
+             each gadget's proof and verification and one sharded proof.
 The last line is {"ok": true, "device": {...}}.  Any failure raises and
 exits non-zero before it.  Without a CUDA card the script exits 2.
 """
@@ -160,6 +175,12 @@ from bulletproofs_tpu_torch.ops.field_host import Scalar, inner_product
 from bulletproofs_tpu_torch.utils.errors import (BatchVerificationError,
                                                  VerificationError)
 from bulletproofs_tpu_torch.utils.hash_db import InMemoryHashDb
+from bulletproofs_tpu_torch.parallel import (create_ipp_sharded, make_mesh,
+                                             make_mesh_2d, msm_multi_sharded,
+                                             msm_sharded, msm_sharded_2d,
+                                             prove_sharded)
+from bulletproofs_tpu_torch.parallel import sharded_msm as sharded_msm_mod
+from bulletproofs_tpu_torch.parallel import sharded_prover
 
 # Bound model (NVIDIA H100 SXM data sheet, at its 700 W limit).  HBM3 at
 # 3.35 TB/s.  Integer multiply-adds: the float32 rate of 67 TFLOP/s counts
@@ -190,10 +211,12 @@ SOURCES["ipa_challenge"] = "bulletproofs_tpu_torch/csrc/transcript_kernels.cu"
 # The kernels each path launches, kernel 3 by form (`launch_counts`): the
 # MSM phases 3-4, the IPA phase 5, the range proof phase 6, the fused IPA
 # against the per-round one (phase 6b), the sparse Merkle tree phase 7, the
-# race of kernels 5 and 4 (phase 8), the batch verifiers (phase 9) and the
-# gadgets (phase 10).  Each must launch on its path.  Every proof's IPA
-# runs fused: its MSMs end in the Horner form on the card, and each round
-# launches `bp_ipa_challenge`.
+# race of kernels 5 and 4 (phase 8), the batch verifiers (phase 9), the
+# gadgets (phase 10) and the sharded MSMs and proofs (phase 12).  Each must
+# launch on its path.  Every single-device proof's IPA runs fused: its MSMs
+# end in the Horner form on the card, and each round launches
+# `bp_ipa_challenge`; the sharded IPA takes one host transcript step a
+# round and its MSMs end in the host Horner.
 _FUSED_IPA = ("ec_add:horner", "ipa_challenge")
 PATHS = {
     "msm": ("bucket_rounds_mixed", "bucket_rounds_proj", "ec_add:pairwise",
@@ -212,6 +235,9 @@ PATHS = {
                 "ec_add:pairwise", "ec_add:gather_sum",
                 "ec_add:window_totals") + _FUSED_IPA,
     "mxu_race": ("bucket_round_add_mxu", "bucket_round_add"),
+    "sharded": ("bucket_rounds_mixed", "bucket_rounds_proj",
+                "ec_add:pairwise", "ec_add:gather_sum",
+                "ec_add:window_totals"),
 }
 # kernel 3's forms in phase 2 -> the kernel form each launches
 FORM_KERNEL = {"split_fold": "gather_sum", "dup_fold": "gather_sum",
@@ -369,21 +395,24 @@ def ipa_slots(n):
     return msm_mod.window_plan(ctx, c, n_sets=2, dup=True)[0].shape[0] << c
 
 
-def combine_shapes(n, n_sets, c=None, horner=False):
+def combine_shapes(n, n_sets, c=None, horner=False, dup=True):
     """The combine's shapes for an MSM of n points and n_sets scalar sets:
-    c (by default pick_window(n)) and `window_plan(dup=True)`'s physical
+    c (by default pick_window(n)) and `window_plan(dup=dup)`'s physical
     rows W' and base windows W, with G, K of `bucket_rowcol`; horner:
     whether the path runs the window Horner on the card (`msm_device`;
-    `msm_hybrid` runs it on the host)."""
+    `msm_hybrid` runs it on the host); dup=False: the plan of the sharded
+    MSMs, without duplicate rows."""
     ctx = CurveCtx(BLS381)
     c = c or msm_mod.pick_window(n)
-    ranges, splits, dup = msm_mod.window_plan(ctx, c, n_sets=n_sets,
-                                              dup=True)
+    ranges, splits, *more = msm_mod.window_plan(ctx, c, n_sets=n_sets,
+                                                dup=dup)
+    dup_plan = more[0] if dup else ()
     g_bits = (c + 1) // 2
     return {"n": n, "sets": n_sets, "c": c, "W_rows": ranges.shape[0],
-            "W": ranges.shape[0] - sum(g - 1 for _, g in dup),
+            "W": ranges.shape[0] - sum(g - 1 for _, g in dup_plan),
             "G": 1 << g_bits, "K": 1 << (c - g_bits), "ranges": ranges,
-            "splits": splits, "dup": dup, "horner": horner}
+            "splits": splits, "dup": dup_plan, "dup_rows": dup,
+            "horner": horner}
 
 
 def phase_kernels(device, n, seed, reps=5, r1cs_msm_n=4098):
@@ -512,6 +541,12 @@ def phase_kernels(device, n, seed, reps=5, r1cs_msm_n=4098):
         P32, Q32 = (packed(a) for a in args)
         return lambda: ek.ec_add32(P32, Q32, ctx)
 
+    def packed_add_plain(P32, Q32, ctx):
+        """Kernel 3 pairwise's plain version on packed points (the form
+        the butterfly and the pre-reduction call it in)."""
+        return pack32(ek.ec_add_plain(unpack32(P32, 1), unpack32(Q32, 1),
+                                      ctx), 1)
+
     # (name, wrapper, plain, args, bare launch factory,
     #  (bytes the kernel moves, IMADs of its mont_muls), shape);
     # the first record of a name is its kernel-line record
@@ -636,19 +671,23 @@ def phase_kernels(device, n, seed, reps=5, r1cs_msm_n=4098):
         """The bucket kernel and kernel 3's sequential forms at the shapes
         of the MSMs a path ran, each (points, sets, c, rounds, pre) as
         `msm_shapes` lists them, or (points, sets, c, rounds, pre, affine,
-        horner) as `device_msm_shapes` does: at S = W'*B slots of
-        `window_plan(n_sets=sets, dup=True)` and the rounds of one launch,
+        horner) as `device_msm_shapes` does, or with an eighth entry dup
+        (False for the sharded MSMs' per-shard passes): at S = W'*B slots
+        of `window_plan(n_sets=sets, dup=dup)` and the rounds of one launch,
         kernel 2 from a pre-reduced table of W'*points rows where the MSM
         pre-reduced, or from a projective
         table of `points` rows where its table is not affine, else kernel 1
         from an affine table of `points` rows; the combine's forms at its
         shapes (Horner where the MSM ran it on the card), each form shape
-        once in the run (`form_key`).  Into `records` under
-        `other_shapes` and `forms`."""
+        once in the run (`form_key`); for a sharded pass also kernel 3
+        pairwise on packed points at the butterfly's W'*B and, where it
+        pre-reduced, the pre-reduction's W'*points, each count once.  Into
+        `records` under `other_shapes` and `forms`."""
         t1 = time.time()
         for points, sets, c_k, rounds, pre, *more in msms:
-            affine_msm, horner = more or (True, False)
-            sh = combine_shapes(points, sets, c_k, horner=horner)
+            affine_msm, horner, dup = (*more,
+                                       *(True, False, True)[len(more):])
+            sh = combine_shapes(points, sets, c_k, horner=horner, dup=dup)
             S_k = sh["W_rows"] << c_k
             R_k = msm_mod._chunk_rounds(rounds)
             rows = sh["W_rows"] * points if pre else points
@@ -665,11 +704,24 @@ def phase_kernels(device, n, seed, reps=5, r1cs_msm_n=4098):
                   rounds_work(found_k, words, empty, ids_read=True),
                   {"path": path, "points": points, "sets": sets, "S": S_k,
                    "R_c": R_k, "pre": pre, "table_rows": rows,
-                   "affine": affine_msm})
+                   "affine": affine_msm, "dup": dup})
             for case in form_cases(ctx, proj, gen, device, [(path, sh)]):
                 if form_key(case[-1]) not in forms_seen:
                     forms_seen.add(form_key(case[-1]))
                     check(*case)
+            if dup:
+                continue
+            for n_k in (S_k, rows if pre else None):
+                if n_k is None or ("pairwise", n_k) in forms_seen:
+                    continue
+                forms_seen.add(("pairwise", n_k))
+                P32, Q32 = (packed(proj[:, :, torch.randint(
+                    0, m, (n_k,), generator=gen).to(device)])
+                    for _ in range(2))
+                check("ec_add", ek.ec_add, packed_add_plain, (P32, Q32),
+                      lambda args: lambda: ek.ec_add32(*args, ctx),
+                      (3 * pt_words * n_k * w32, n_k * 12 * imad),
+                      {"path": path, "n": n_k, "packed": True})
         emit({"phase": "kernels_at", "path": path, "msms": msms,
               "seconds": time.time() - t1})
 
@@ -880,9 +932,11 @@ def form_cases(ctx, proj, gen, device, paths):
                               sh["splits"][:, 0].tolist()))
         cases.append(gather_case(path, "split_fold", sh, raw, split_idx,
                                  False))
-        dup_idx = index(("dup", W, B, sh["dup"]),
-                        lambda: msm_mod._dup_fold_index(W, B, sh["dup"]))
-        cases.append(gather_case(path, "dup_fold", sh, raw, dup_idx, False))
+        if sh["dup_rows"]:     # the sharded plans have no duplicate rows
+            dup_idx = index(("dup", W, B, sh["dup"]),
+                            lambda: msm_mod._dup_fold_index(W, B, sh["dup"]))
+            cases.append(gather_case(path, "dup_fold", sh, raw, dup_idx,
+                                     False))
         base = points(W * B)
         rowcol_idx = index(("rowcol", W, G, K),
                            lambda: msm_mod._rowcol_index(W, G, K))
@@ -918,6 +972,7 @@ def form_cases(ctx, proj, gen, device, paths):
     return cases
 
 
+@functools.cache
 def _bench_input(n, seed, bits):
     """The bench's MSM input: m = n_base(n) random points repeated to n,
     scalars uniform mod r (or uniform bits), and the independent host value
@@ -976,6 +1031,7 @@ def phase_msm(device, n, seed, bits, reps):
           "seconds": time.time() - t0})
 
 
+@functools.cache
 def _ipa_bases(n, seed):
     """The bench's config-3 bases and vectors (`bench.py` config3):
     m = n_base(n) hash-derived G and H bases (repeated to n by the
@@ -991,6 +1047,7 @@ def _ipa_bases(n, seed):
     return Gb, Hb, Q, a, b
 
 
+@functools.cache
 def _ipa_input(n, seed):
     """`_ipa_bases` with unit factors and P = <a, G> + <b, H> + <a, b> Q
     from one host MSM over the 2m + 1 distinct points."""
@@ -1125,7 +1182,7 @@ def phase_ipa(device, n, seed, reps):
           "tampered_rejected": True,
           "round_kernel_proof_identical": True, "setup_seconds": setup,
           "a": proof.a.to_bytes().hex()[-32:], "seconds": time.time() - t0})
-    return per_call
+    return {**per_call, "proof": want}
 
 
 def phase_ipa_fused(device, n, seed, reps, records, r1cs=None):
@@ -1428,9 +1485,10 @@ def trace(run, watch=()):
     {traced wall ms, device busy ms (kernels, copies and sets), idle share,
     kernels, copies and sets, the device ms of the 6 kernels (by name, cut
     to 80 characters) that took the most, and for each name in watch the
-    device ms of the kernels whose names hold it})."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+    device ms of the kernels whose names hold it}).  It records the CUDA
+    activity alone: the numbers read only the device's events, and
+    recording the host's too doubled a trace's cost."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1958,6 +2016,199 @@ def phase_gadgets(device, ref):
     return {"launches": per_call, "msms": msms, "proofs": proofs}
 
 
+def phase_sharded(device, n, seed, reps, ref, r1cs=(16, 64), shards=4,
+                  ipa_n=None, ipa_proof=None):
+    """Phase 12: the sharded MSM and prover (`bulletproofs_tpu_torch.
+    parallel`) on a mesh of `shards` shards of one device,
+    `make_mesh([device] * shards)`: every shard's bucket pass, every
+    butterfly step and IPA exchange runs on that device.
+    - `msm_sharded` on phase 3's input (n uniform scalars), 1 + reps runs
+      beside 1 + reps of `msm_device` on the same input, each checked
+      against the host sum, and on the card one traced run (the
+      butterfly's device ms: its only pairwise adds); `msm_sharded_2d`
+      once on a 2 x shards/2 mesh;
+    - `msm_multi_sharded` on phase 4's bit vector, 1 + reps runs: the
+      round guess overflows and the shards pre-reduce (kernels 2 and 3);
+    - `create_ipp_sharded` at ipa_n (default n) on phase 5's input, 1 + 1
+      runs, the bytes of phase 5's proof (ipa_proof; made here when None);
+    - `prove_sharded` on phase 6's statements (r1cs = (m, bits)), seeds
+      1..1 + reps, the seed ref["seed"] proof's sha256 ref["sha256"],
+      `Verifier.verify` accepts it and t_x + 1 is rejected; the stages of
+      one more proof.
+    Returns {"msms": the per-shard MSM shapes the phase ran, for
+    `kernels_at`, "launches": the launches of one sharded proof}."""
+    t0 = time.time()
+    device = torch.device(device)
+    devices = [device] * shards
+    mesh = make_mesh(devices)
+    ctx = CurveCtx(BLS381)
+    ns = n // shards
+    sharded_prover._sharded_memo.clear()
+    out = {"phase": "sharded", "shards": shards,
+           "devices": [str(d) for d in mesh.flat], "n": n}
+    p50 = lambda ts: sorted(ts)[len(ts) // 2]
+    parts = {}                  # seconds by part of the phase
+
+    def timed(name, run, expected):
+        """1 + reps runs of run() -> (first s, warm p50 s), each result's
+        bytes the expected point's."""
+        times = []
+        for _ in range(1 + reps):
+            t1 = time.time()
+            res = run()
+            times.append(time.time() - t1)
+            if res.to_bytes() != expected.to_bytes():
+                raise AssertionError(f"sharded: {name} differs from the "
+                                     "host sum")
+        return times[0], p50(times[1:] or times)
+
+    # phase 3's input, uniform scalars
+    c = msm_mod.pick_window(n)
+    pts, vals, expected = _bench_input(n, seed, bits=False)
+    P, affine = to_device_points_affine(pts, ctx, device)
+    s = to_device_scalars(vals, ctx, device)
+    run = lambda: from_device_points(
+        msm_sharded(P, s, ctx, c, mesh, affine=affine), ctx)[0]
+    first, warm = timed("msm_sharded", run, expected)
+    if device.type == "cuda":         # its only pairwise adds: the butterfly
+        _, out["trace_msm_sharded"] = trace(run, watch=("ec_add_kernel",))
+    one_first, one_warm = timed("msm_device", lambda: from_device_points(
+        msm_mod.msm_device(P, s, ctx, c, affine=affine), ctx)[0], expected)
+    rounds = sharded_msm_mod._global_rounds(
+        sharded_msm_mod.split_shards(s, mesh), ctx, c)
+    msms = [(ns, 1, c, rounds, 0, affine, True, False)]
+    t1 = time.time()
+    got = from_device_points(msm_sharded_2d(
+        P, s, ctx, c, make_mesh_2d(2, shards // 2, devices),
+        affine=affine), ctx)[0]
+    if got.to_bytes() != expected.to_bytes():
+        raise AssertionError("sharded: msm_sharded_2d differs from the host "
+                             "sum")
+    out.update({"c": c, "msm_rounds": rounds,
+                "msm_sharded_first_seconds": first,
+                "msm_sharded_seconds_p50": warm,
+                "msm_device_first_seconds": one_first,
+                "msm_device_seconds_p50": one_warm,
+                "msm_sharded_2d_mesh": [2, shards // 2],
+                "msm_sharded_2d_seconds": time.time() - t1})
+
+    # phase 4's input, a bit vector: escalation to pre-reduction
+    pts_b, vals_b, expected_b = _bench_input(n, seed + 1, bits=True)
+    Pb, affine_b = to_device_points_affine(pts_b, ctx, device)
+    sb = to_device_scalars(vals_b, ctx, device)[None]
+    first, warm = timed("msm_multi_sharded (bits)", lambda: msm_multi_sharded(
+        Pb, sb, ctx, c, mesh, affine=affine_b)[0], expected_b)
+    rounds_b, pre_b = sharded_prover._sharded_memo[
+        (ns, 1, c, ctx.cv.name, shards, None)]
+    if pre_b == 0:
+        raise AssertionError("sharded: the bit-vector MSM did not "
+                             "pre-reduce")
+    out.update({"bits_rounds": rounds_b, "bits_pre_reduce": pre_b,
+                "msm_multi_sharded_bits_first_seconds": first,
+                "msm_multi_sharded_bits_seconds_p50": warm})
+
+    # phase 5's input: the IPA, its bytes phase 5's
+    label = b"ipa_smoke"
+    ipa_n = ipa_n or n
+    parts["msm"] = time.time() - t0
+    Gb, Hb, Q, a, b = _ipa_bases(ipa_n, seed + 2)
+    m = len(Gb)
+    G = [Gb[i % m] for i in range(ipa_n)]
+    H = [Hb[i % m] for i in range(ipa_n)]
+    ones = [Scalar.one(BLS381)] * ipa_n
+    if ipa_proof is None:
+        ipa_proof = _proof_bytes(bt.create_ipp(
+            bt.ProofTranscript(label), Q, ones, ones, G, H, a, b,
+            device=device))
+
+    def ipa():
+        L, R, af, bf = create_ipp_sharded(bt.ProofTranscript(label), Q, ones,
+                                          ones, G, H, a, b, mesh)
+        return ([p.to_bytes() for p in L], [p.to_bytes() for p in R],
+                af.to_bytes(), bf.to_bytes())
+
+    ipa_times = []
+    for _ in range(2):
+        t1 = time.time()
+        got = ipa()
+        ipa_times.append(time.time() - t1)
+        if got != ipa_proof:
+            raise AssertionError("sharded: the sharded IPA's bytes differ "
+                                 "from phase 5's proof")
+    parts["ipa"] = time.time() - t0 - sum(parts.values())
+    out.update({"ipa_n": ipa_n,
+                "ipa_sharded_prove_first_seconds": ipa_times[0],
+                "ipa_sharded_prove_seconds": ipa_times[1],
+                "ipa_bytes_identical": True})
+
+    # phase 6's statements, proved on the mesh
+    m_r, bits = r1cs
+    nr = m_r * 2 * bits
+    Gr, Hr = bt.get_generators("G", nr), bt.get_generators("H", nr)
+    g, h = G1.from_msg_hash(b"g", BLS381), G1.from_msg_hash(b"h", BLS381)
+    per_call = {}
+
+    def prove(seed_r, profile=False):
+        prover, comms = _agg_range_prover(seed_r, m_r, bits, g, h, device)
+        prover_device._prof.enabled = profile
+        before = launch_counts()
+        t1 = time.time()
+        try:
+            proof = prove_sharded(prover, Gr, Hr, mesh)
+        finally:
+            prover_device._prof.enabled = False
+        dt = time.time() - t1
+        per_call["prove"] = {k: v - before[k] for k, v in
+                             launch_counts().items()}
+        return proof, comms, dt
+
+    seeds = [1, 2, 3, 4][:1 + reps]
+    runs = {sd: prove(sd) for sd in seeds}
+    if ref["seed"] not in runs:
+        raise AssertionError(f"sharded: no proof of the reference seed "
+                             f"{ref['seed']}")
+    proof, comms, _ = runs[ref["seed"]]
+    digest = hashlib.sha256(proof.to_bytes()).hexdigest()
+    if digest != ref["sha256"]:
+        raise AssertionError(f"sharded: proof of seed {ref['seed']} has "
+                             f"sha256 {digest}, the JAX package's "
+                             f"{ref['sha256']}")
+    t1 = time.time()
+    _agg_range_verifier(comms, bits, device).verify(proof, g, h, Gr, Hr)
+    verify_s = time.time() - t1
+    bad = bt.R1CSProof.from_bytes(proof.to_bytes())
+    bad.t_x = bad.t_x + Scalar.one(BLS381)
+    try:
+        _agg_range_verifier(comms, bits, device).verify(bad, g, h, Gr, Hr)
+    except VerificationError:
+        pass
+    else:
+        raise AssertionError("sharded: a tampered proof (t_x + 1) verified")
+    prover_device._prof.take()
+    again, _, staged = prove(ref["seed"], profile=True)
+    stages = prover_device._prof.take()
+    stages["other"] = staged - sum(stages.values())
+    if again.to_bytes() != proof.to_bytes():
+        raise AssertionError("sharded: proofs of one input differ")
+    warm = [runs[sd][2] for sd in seeds[1:]] or [runs[seeds[0]][2]]
+    out.update({"m": m_r, "bits": bits, "r1cs_n": nr,
+                "r1cs_sharded_prove_first_seconds": runs[seeds[0]][2],
+                "r1cs_sharded_prove_seconds_p50": p50(warm),
+                "r1cs_sharded_stage_seconds": stages,
+                "r1cs_verify_seconds": verify_s, "proof_sha256": digest,
+                "reference_seed": ref["seed"], "matches_reference": True,
+                "tampered_rejected": True,
+                "launches_per_proof": per_call["prove"]})
+    # the per-shard shapes of the multi-set MSMs: (points a shard, sets,
+    # c, rounds, pre, affine tables, Horner on the card, duplicate rows)
+    msms += [(k[0], k[1], k[2], *v, True, False, False) for k, v in
+             sharded_prover._sharded_memo.items()]
+    out["msms"] = msms
+    parts["r1cs"] = time.time() - t0 - sum(parts.values())
+    emit({**out, "part_seconds": parts, "seconds": time.time() - t0})
+    return {"msms": msms, "launches": per_call}
+
+
 def msm_shapes():
     """The MSM shapes in `msm._escalation_memo`, with the rounds and
     pre-reduction passes that `msm_hybrid` settled on for each, then the
@@ -2193,7 +2444,11 @@ def main():
                 "cuda", gadget_ref), per_call),
             "mxu_race": _run_path("mxu_race", lambda: phase_mxu_race(
                 "cuda", args.n, args.seed + 3)),
+            "sharded": _run_path("sharded", lambda: phase_sharded(
+                "cuda", args.n, args.seed, 3, ref, (ref["m"], ref["bits"]),
+                ipa_proof=per_call["ipa"].pop("proof")), per_call),
         }
+        check_msms("sharded", per_call["sharded"]["msms"])
         for path in ("smt", "batch", "gadgets"):
             res = per_call[path]
             per_call[path] = res["launches"]
@@ -2212,6 +2467,8 @@ def main():
               "per_smt_verify": per_call["smt"]["verify"],
               "per_batch_check": per_call["batch"],
               "per_gadget": per_call["gadgets"],
+              "per_sharded_r1cs_proof": per_call["sharded"]["launches"][
+                  "prove"],
               "seconds": time.time() - t_start})
     print(smi, flush=True)
     emit({"kernels": [records[k] for k in REPLACES]})

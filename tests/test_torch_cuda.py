@@ -794,3 +794,90 @@ def test_gadget_proof_on_card_matches_cpu(cuda_device):
         cases["cuda"][1](proof, comms, g, h, G, H)
         with pytest.raises(VerificationError):
             cases["cuda"][1](proof, comms, g, h, G, H, tampered=True)
+
+
+def _sharded_msm_input(cv, n, seed, bits=False):
+    rnd = random.Random(seed)
+    base = [bt.G1.random(rnd, cv) for _ in range(16)]
+    pts = [base[i % 16] for i in range(n)]
+    ks = [rnd.randrange(2) if bits else rnd.randrange(cv.r)
+          for _ in range(n)]
+    return pts, ks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("curve", sorted(CURVES))
+def test_msm_sharded_on_virtual_card_mesh(curve, cuda_device):
+    """n = 1022 (padded to 1024) on 4 shards of one card: `msm_sharded`
+    and `msm_sharded_2d` (2 x 2) equal the host sum; `msm_multi_sharded`
+    on a bit vector and a uniform set pre-reduces and is exact; the
+    bucket kernels and kernel 3 pairwise launched."""
+    from bulletproofs_tpu_torch.parallel import (make_mesh, make_mesh_2d,
+                                                 msm_multi_sharded,
+                                                 msm_sharded, msm_sharded_2d)
+    cv = CURVES[curve]
+    ctx = E.CurveCtx(cv)
+    devices = [cuda_device] * 4
+    pts, ks = _sharded_msm_input(cv, 1022, 90)
+    P, affine = E.to_device_points_affine(pts, ctx, cuda_device)
+    s = E.to_device_scalars(ks, ctx, cuda_device)
+    want = bt.msm_host(pts, ks)
+    ek.reset_launches()
+    for fn, mesh in ((msm_sharded, make_mesh(devices)),
+                     (msm_sharded_2d, make_mesh_2d(2, 2, devices))):
+        got = fn(P, s, ctx, M.pick_window(1022), mesh, affine=affine)
+        assert got.device.type == "cuda"
+        assert E.from_device_points(got, ctx)[0] == want
+    assert ek.launches["bucket_rounds_mixed"] > 0
+    assert ek.form_launches["pairwise"] > 0
+    _, bits = _sharded_msm_input(cv, 1022, 91, bits=True)
+    sets = torch.stack([E.to_device_scalars(k, ctx, cuda_device)
+                        for k in (bits, ks)])
+    ek.reset_launches()
+    got = msm_multi_sharded(P, sets, ctx, 4, make_mesh(devices),
+                            affine=affine)
+    assert got == [bt.msm_host(pts, bits), want]
+    assert ek.launches["bucket_rounds_proj"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("curve", sorted(CURVES))
+def test_ipa_sharded_on_virtual_card_mesh(curve, cuda_device):
+    """An n = 2^10 IPA on 4 shards of one card has the bytes of the
+    single-device proof (fused, the card's default)."""
+    from bulletproofs_tpu_torch.parallel import create_ipp_sharded, make_mesh
+    cv = CURVES[curve]
+    n = 1 << 10
+    rnd = random.Random(92)
+    with bt.using_curve(cv):
+        G, H = bt.get_generators("G", n), bt.get_generators("H", n)
+        Q = bt.G1.from_msg_hash(b"Q", cv)
+        a, b, Gf, Hf = ([bt.Scalar.random(rnd, cv) for _ in range(n)]
+                        for _ in range(4))
+        want = bt.create_ipp(bt.ProofTranscript(b"mesh"), Q, Gf, Hf, G, H, a,
+                             b, device=cuda_device)
+        L, R, af, bf = create_ipp_sharded(bt.ProofTranscript(b"mesh"), Q, Gf,
+                                          Hf, G, H, a, b,
+                                          make_mesh([cuda_device] * 4))
+    assert [p.to_bytes() for p in L] == [p.to_bytes() for p in want.L]
+    assert [p.to_bytes() for p in R] == [p.to_bytes() for p in want.R]
+    assert (af, bf) == (want.a, want.b)
+
+
+@pytest.mark.cuda
+def test_msm_sharded_over_every_card(cuda_device):
+    """`make_mesh()` over every card of the host (peer copies between the
+    cards in the butterfly): the host sum.  Needs 2 cards or more."""
+    from bulletproofs_tpu_torch.parallel import make_mesh, msm_sharded
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 CUDA cards or more")
+    mesh = make_mesh()
+    cv = BLS381
+    ctx = E.CurveCtx(cv)
+    pts, ks = _sharded_msm_input(cv, 4096, 93)
+    P, affine = E.to_device_points_affine(pts, ctx, cuda_device)
+    got = msm_sharded(P, E.to_device_scalars(ks, ctx, cuda_device), ctx,
+                      M.pick_window(4096), mesh, affine=affine)
+    assert E.from_device_points(got, ctx)[0] == bt.msm_host(pts, ks)
+    assert {d.index for d in mesh.flat} == \
+        set(range(torch.cuda.device_count()))

@@ -312,7 +312,10 @@ def test_port_imports_no_jax():
             "bulletproofs_tpu_torch.ops.torch_backend",
             "bulletproofs_tpu_torch.backend",
             "bulletproofs_tpu_torch.models.randomizer",
-            "bulletproofs_tpu_torch.models.hamming_distance"} \
+            "bulletproofs_tpu_torch.models.hamming_distance",
+            "bulletproofs_tpu_torch.parallel",
+            "bulletproofs_tpu_torch.parallel.sharded_msm",
+            "bulletproofs_tpu_torch.parallel.sharded_prover"} \
         <= set(res["mods"])
     assert res["bad"] == []
 
@@ -345,6 +348,18 @@ def test_chip_smoke_phases_rehearse_on_cpu(capsys):
     # its folds, sums and totals have the smt path's 1-set shapes, checked
     # there: each form shape is checked once a run
     assert len(records["ec_add"]["forms"]) == forms + 2 * 4 + 1
+    # a sharded pass (no duplicate rows): kernel 1 at its slots, the split
+    # fold, sums and totals of its plan, and no duplicate-row fold
+    check_msms("sharded", [(24, 2, 2, 4, 0, True, False, False)])
+    sub = records["bucket_rounds_mixed"]["other_shapes"][-1]
+    assert sub["shape"]["path"] == "sharded" and sub["max_abs_err"] == 0
+    assert sub["shape"]["dup"] is False
+    new = [f["shape"]["form"] for f in records["ec_add"]["forms"]
+           if f["shape"].get("path") == "sharded"]
+    assert new == ["split_fold", "rowcol", "window_totals"]
+    sub = records["ec_add"]["other_shapes"][-1]        # the butterfly's add
+    assert sub["shape"] == {"path": "sharded", "n": 256 << 2,
+                            "packed": True} and sub["max_abs_err"] == 0
     ek.reset_launches()
     chip_smoke.phase_msm("cpu", 256, 6, bits=False, reps=0)
     chip_smoke.phase_msm("cpu", 256, 7, bits=True, reps=0)
@@ -388,6 +403,44 @@ def test_combine_matches_jax(curve):
     for g, w in zip(got, want):
         assert g.dtype == torch.int32
         np.testing.assert_array_equal(E.to_jax_points(F.unpack32(g, 1)), w)
+
+
+@pytest.mark.parametrize("kind", ["uniform", "bits", "imbalanced"])
+def test_max_occupancy_and_combine_buckets_match_jax(kind):
+    """`_max_occupancy` equals the JAX package's, and a bucket pass at that
+    many rounds under `window_plan(ctx, c)` needs no more; `combine_buckets`
+    of its buckets equals the JAX package's limb for limb and the host
+    MSM.  n = 64, c = 4: uniform scalars, bits (every point in bucket 1 of
+    window 0, split over its sub-buckets), and all the non-zero scalars in
+    the first eighth (the sharded MSM's imbalanced shard)."""
+    cv, jcv = config.BLS381, jconfig.BLS381
+    ctx = E.CurveCtx(cv)
+    n, c = 64, 4
+    pts, ks = _msm_input(n, 91, cv)
+    rnd = random.Random(92)
+    if kind == "bits":
+        ks = [rnd.randrange(2) for _ in range(n)]
+    elif kind == "imbalanced":
+        ks = [k if i < n // 8 else 0 for i, k in enumerate(ks)]
+    P, s, jctx = _jax_arrays(pts, ks, jcv)
+    st = E.from_jax_scalars(s, "cpu")
+    occ = M._max_occupancy(st, ctx, c)
+    assert occ.ndim == 0
+    assert int(occ) == int(jmsm._max_occupancy(jnp.asarray(s), jctx, c))
+    W = -(-cv.fr.n_bits // c)
+    buckets, got_occ = M.bucket_accumulate(
+        E.from_jax_points(P, "cpu"), F.get_digits(st, c, W), ctx, c,
+        int(occ), plan=M.window_plan(ctx, c))
+    assert got_occ == int(occ)
+    total = M.combine_buckets(buckets, ctx, c)
+    assert total.dtype == torch.int32 and total.shape == (3, ctx.fp.L // 2,
+                                                          1)
+    want = jax.jit(partial(jmsm.combine_buckets, ctx=jctx, c=c))(
+        jnp.asarray(E.to_jax_points(F.unpack32(buckets, 1))))
+    np.testing.assert_array_equal(E.to_jax_points(F.unpack32(total, 1)),
+                                  np.asarray(want))
+    assert E.from_device_points(F.unpack32(total, 1), ctx)[0] == \
+        bt.msm_host(pts, ks)
 
 
 def test_msm_calls_kernel3_a_few_times(monkeypatch):
