@@ -87,7 +87,11 @@ __device__ __forceinline__ bool warp_needs(bool p) {
     return __any_sync(kWarp, p);
 }
 
-// The field constants a lane needs: its words of p and of Montgomery one.
+// The field constants a lane needs: its words of p and of Montgomery one,
+// and for a != 0 (the second constructor) the kernel's constants a, a^2
+// and 3b, a `__grid_constant__` parameter that each product reads its
+// words of where it takes them (`lane_words`), so that they hold no
+// registers across the add.
 template <int NL>
 struct FieldL {
     static constexpr int K = NL / kLanes;
@@ -95,6 +99,7 @@ struct FieldL {
     uint32_t one[K];
     uint32_t n0inv;
     uint32_t b3;
+    const CurveA<NL>* ca = nullptr;   // RCB16 algorithm 1 (a != 0) only
 
     __device__ __forceinline__ FieldL(const Field<NL>& f, int j) {
 #pragma unroll
@@ -105,7 +110,35 @@ struct FieldL {
         n0inv = f.n0inv;
         b3 = f.b3;
     }
+
+    __device__ __forceinline__ FieldL(const Field<NL>& f,
+                                      const CurveA<NL>& curve, int j)
+        : FieldL(f, j) {
+        ca = &curve;
+    }
 };
+
+// w: the lane's K words of an NL-word constant c; returns w.
+template <int NL>
+__device__ __forceinline__ const uint32_t* lane_words(uint32_t* w,
+                                                      const uint32_t* c,
+                                                      int j) {
+    constexpr int K = NL / kLanes;
+#pragma unroll
+    for (int k = 0; k < K; k++) w[k] = c[j * K + k];
+    return w;
+}
+
+// A lane's FieldL for a kernel instantiated for a = 0 or (GA) a != 0.
+template <int NL, bool GA>
+__device__ __forceinline__ FieldL<NL> field_l(const Field<NL>& f,
+                                              const CurveA<NL>& ca, int j) {
+    if constexpr (GA) {
+        return FieldL<NL>(f, ca, j);
+    } else {
+        return FieldL<NL>(f, j);
+    }
+}
 
 // r (the lane's K words of a sum formed lane by lane) and g, the lane's
 // carry out: propagate the carries between lanes; returns the carry out of
@@ -308,8 +341,51 @@ __device__ __forceinline__ void add_tail_l(uint32_t* X3, uint32_t* Y3,
     add_mod_l<NL>(Z3, u, w, f, ln);         // yz*n + 3*t0*xy
 }
 
-// P1 += P2, complete projective add (RCB16 algorithm 7, 12 multiplies).
-template <int NL, class Mul = CiosMulL<NL>>
+// RCB16 algorithm 1's end (a != 0; see ec_common.cuh add_tail_a): 18
+// products an add where algorithm 7 takes 12.
+template <int NL, class Mul>
+__device__ __forceinline__ void add_tail_a_l(uint32_t* X3, uint32_t* Y3,
+                                             uint32_t* Z3,
+                                             const uint32_t* t0,
+                                             const uint32_t* t1,
+                                             const uint32_t* t2,
+                                             const uint32_t* xy,
+                                             const uint32_t* yz,
+                                             const uint32_t* xz,
+                                             const FieldL<NL>& f,
+                                             const Lanes& ln,
+                                             const Mul& mul) {
+    constexpr int K = NL / kLanes;
+    uint32_t u[K], v[K], w[K], m[K], n[K], u1[K], u4[K], c[K];
+    const CurveA<NL>& ca = *f.ca;
+    mul(u, xz, lane_words<NL>(c, ca.a, ln.j), f, ln);
+    mul(v, t2, lane_words<NL>(c, ca.b3, ln.j), f, ln);
+    add_mod_l<NL>(w, u, v, f, ln);          // a*xz + 3b*t2
+    sub_mod_l<NL>(m, t1, w, f, ln);
+    add_mod_l<NL>(n, t1, w, f, ln);
+    mul(u, t2, lane_words<NL>(c, ca.a, ln.j), f, ln);
+    mul_small_l<NL>(v, t0, 3, f, ln);
+    add_mod_l<NL>(u1, v, u, f, ln);         // 3*t0 + a*t2
+    mul(u, t2, lane_words<NL>(c, ca.a2, ln.j), f, ln);
+    mul(v, t0, lane_words<NL>(c, ca.a, ln.j), f, ln);
+    sub_mod_l<NL>(w, v, u, f, ln);          // a*t0 - a^2*t2
+    mul(u, xz, lane_words<NL>(c, ca.b3, ln.j), f, ln);
+    add_mod_l<NL>(u4, u, w, f, ln);         // 3b*xz + a*t0 - a^2*t2
+    mul(u, xy, m, f, ln);
+    mul(v, yz, u4, f, ln);
+    sub_mod_l<NL>(X3, u, v, f, ln);         // xy*m - yz*u4
+    mul(u, m, n, f, ln);
+    mul(v, u1, u4, f, ln);
+    add_mod_l<NL>(Y3, u, v, f, ln);         // m*n + u1*u4
+    mul(u, yz, n, f, ln);
+    mul(v, xy, u1, f, ln);
+    add_mod_l<NL>(Z3, u, v, f, ln);         // yz*n + xy*u1
+}
+
+// P1 += P2, complete projective add: RCB16 algorithm 7 (a = 0, 12
+// multiplies), or algorithm 1 (GA: a != 0, 18 multiplies, the FieldL of
+// `field_l<NL, true>`).
+template <int NL, bool GA = false, class Mul = CiosMulL<NL>>
 __device__ __forceinline__ void ec_add_l(uint32_t* X1, uint32_t* Y1,
                                          uint32_t* Z1, const uint32_t* X2,
                                          const uint32_t* Y2,
@@ -337,10 +413,15 @@ __device__ __forceinline__ void ec_add_l(uint32_t* X1, uint32_t* Y1,
     mul(xz, s1, s2, f, ln);
     sub_mod_l<NL>(xz, xz, t0, f, ln);
     sub_mod_l<NL>(xz, xz, t2, f, ln);
-    mul_small_l<NL>(s1, t2, f.b3, f, ln);  // b3*t2
-    sub_mod_l<NL>(s2, t1, s1, f, ln);      // m
-    add_mod_l<NL>(t2, t1, s1, f, ln);      // n
-    add_tail_l<NL, Mul>(X1, Y1, Z1, xy, yz, xz, t0, s2, t2, f, ln, mul);
+    if constexpr (GA) {
+        add_tail_a_l<NL, Mul>(X1, Y1, Z1, t0, t1, t2, xy, yz, xz, f, ln,
+                              mul);
+    } else {
+        mul_small_l<NL>(s1, t2, f.b3, f, ln);  // b3*t2
+        sub_mod_l<NL>(s2, t1, s1, f, ln);      // m
+        add_mod_l<NL>(t2, t1, s1, f, ln);      // n
+        add_tail_l<NL, Mul>(X1, Y1, Z1, xy, yz, xz, t0, s2, t2, f, ln, mul);
+    }
 }
 
 // P1 += (X2, Y2, 1), complete mixed add (RCB16 algorithm 8, 11 multiplies).
@@ -459,15 +540,16 @@ unsigned groups_grid(long long groups, int block) {
     return (unsigned)((groups * kLanes + block - 1) / block);
 }
 
-// One round of RCB16 algorithm 7 for a group of kernel 2, 4 or 5: the
-// accumulator (X : Y : Z) adds row `id` of the projective table (n, 3NL),
-// each point's X, Y, then Z words, where `live`, else the identity
-// (0 : 1 : 0), as the TPU kernels do; algorithm 7 turns the identity into
-// (X*Y : Y*Y : Z*Y), exactly, which rescales the representative.  A warp
-// with a live slot runs the whole add for each of its groups, the empty
-// ones on the identity row; a warp whose slots are all empty runs only
-// those 3 products.  Either way the words are the plain version's.
-template <int NL, class Mul = CiosMulL<NL>>
+// One round of RCB16 algorithm 7 (GA: algorithm 1) for a group of kernel
+// 2, 4 or 5: the accumulator (X : Y : Z) adds row `id` of the projective
+// table (n, 3NL), each point's X, Y, then Z words, where `live`, else the
+// identity (0 : 1 : 0), as the TPU kernels do; either algorithm turns the
+// identity into (X*Y : Y*Y : Z*Y), exactly, which rescales the
+// representative.  A warp with a live slot runs the whole add for each of
+// its groups, the empty ones on the identity row; a warp whose slots are
+// all empty runs only those 3 products.  Either way the words are the
+// plain version's.
+template <int NL, bool GA = false, class Mul = CiosMulL<NL>>
 __device__ __forceinline__ void proj_round_l(uint32_t* X, uint32_t* Y,
                                              uint32_t* Z,
                                              const uint32_t* table, int id,
@@ -485,7 +567,7 @@ __device__ __forceinline__ void proj_round_l(uint32_t* X, uint32_t* Y,
             y2[k] = live ? row[NL + k] : fl.one[k];
             z2[k] = live ? row[2 * NL + k] : 0u;
         }
-        ec_add_l<NL, Mul>(X, Y, Z, x2, y2, z2, fl, ln, mul);
+        ec_add_l<NL, GA, Mul>(X, Y, Z, x2, y2, z2, fl, ln, mul);
     } else {
         uint32_t y[K];
 #pragma unroll

@@ -283,7 +283,8 @@ bucket_round_add_mxu_kernel(uint32_t* out, const uint32_t* acc,
 extern "C" {
 
 // Returns cudaGetLastError() after the launch (0 when accepted); a limb
-// count other than 8 or 12 gives cudaErrorInvalidValue.
+// count other than 8 or 12 gives cudaErrorInvalidValue, and so does an
+// a != 0 curve (`general_a`): the kernel is RCB16 algorithm 7's.
 int bp_bucket_round_add_mxu(void* out, const void* acc, const void* table,
                             const void* ids, const void* found, int S,
                             int nl, const void* consts, const void* tables,
@@ -291,7 +292,8 @@ int bp_bucket_round_add_mxu(void* out, const void* acc, const void* table,
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const uint32_t* c = static_cast<const uint32_t*>(consts);
     const uint32_t* frags = static_cast<const uint32_t*>(tables);
-    if (S <= 0) return (int)cudaErrorInvalidValue;
+    if (S <= 0 || ((nl == 12 || nl == 8) && general_a(nl, c)))
+        return (int)cudaErrorInvalidValue;
     const unsigned grid = groups_grid(S, kSlotBlock);
     if (nl == 12) {
         bucket_round_add_mxu_kernel<12><<<grid, kSlotBlock, 0, st>>>(

@@ -2,16 +2,19 @@
 a plain C interface, loaded with `ctypes`.  No PyTorch headers and no
 `torch.utils.cpp_extension`, so a cold build takes seconds to a minute.
 
-Each source of `SOURCES` is its own library: kernels 1-4 in
-`csrc/ec_kernels.cu`, kernel 5 in `csrc/mxu_kernels.cu`, both including
+Each source of `SOURCES` is its own library: kernels 1-4 for a = 0 curves
+in `csrc/ec_kernels.cu`, kernels 2-4 for a != 0 (ed25519) in
+`csrc/ec_kernels_a.cu` (ec_kernels.cu built again, its C functions named
+with "_a" at the end), kernel 5 in `csrc/mxu_kernels.cu` and the roofline
+harness's chain kernel in `csrc/roofline_kernels.cu`, each including
 `csrc/ec_lanes.cuh`, `csrc/ec_common.cuh` and `csrc/carry.cuh`, and the
 fused IPA's `bp_ipa_challenge` in `csrc/transcript_kernels.cu` (including
-`csrc/ec_common.cuh`).  The
-libraries are built at first CUDA use into
+`csrc/ec_common.cuh`).  The libraries are built at first CUDA use into
 `bulletproofs_tpu_torch/_build/` (listed in `.gitignore`), one `nvcc` per
 source, all started together; each is named by a hash of its source, the
-shared header and the flags, so an edited source builds anew and an
-unchanged one is reused.  A failed build raises with the compiler's output.
+files of `csrc/` it includes and the flags, so an edited source builds
+anew and an unchanged one is reused.  A failed build raises with the
+compiler's output.
 """
 
 import ctypes
@@ -31,24 +34,30 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-HEADERS = (CSRC / "ec_common.cuh", CSRC / "ec_lanes.cuh",
-           CSRC / "carry.cuh")
-
 # C signatures by source: every pointer and the stream are c_void_p
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_EC_KERNELS = {
+    "bp_bucket_rounds_mixed": (_P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
+    "bp_bucket_rounds_proj": (_P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
+    "bp_ec_add": (_P, _P, _P, _LL, _I, _P, _P),
+    "bp_bucket_round_add": (_P, _P, _P, _P, _P, _I, _I, _P, _P),
+    "bp_ec_gather_sum": (_P, _P, _P, _I, _I, _LL, _I, _I, _P, _P),
+    "bp_ec_window_totals": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
+    "bp_ec_horner": (_P, _P, _I, _I, _I, _I, _P, _P),
+}
 SOURCES = {
-    CSRC / "ec_kernels.cu": {
-        "bp_bucket_rounds_mixed": (_P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
-        "bp_bucket_rounds_proj": (_P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
-        "bp_ec_add": (_P, _P, _P, _LL, _I, _P, _P),
-        "bp_bucket_round_add": (_P, _P, _P, _P, _P, _I, _I, _P, _P),
-        "bp_ec_gather_sum": (_P, _P, _P, _I, _I, _LL, _I, _I, _P, _P),
-        "bp_ec_window_totals": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
-        "bp_ec_horner": (_P, _P, _I, _I, _I, _I, _P, _P),
-    },
+    CSRC / "ec_kernels.cu": _EC_KERNELS,
+    # kernel 1 is built for a = 0 only
+    CSRC / "ec_kernels_a.cu": {f"{name}_a": sig
+                               for name, sig in _EC_KERNELS.items()
+                               if name != "bp_bucket_rounds_mixed"},
     CSRC / "mxu_kernels.cu": {
         "bp_bucket_round_add_mxu": (_P, _P, _P, _P, _P, _I, _I, _P, _P,
                                     _P),
+    },
+    CSRC / "roofline_kernels.cu": {
+        "bp_ec_add_chain": (_P, _P, _LL, _I, _I, _P, _P),
+        "bp_mont_mul_chain": (_P, _P, _LL, _I, _I, _P, _P),
     },
     CSRC / "transcript_kernels.cu": {
         "bp_ipa_challenge": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
@@ -71,11 +80,24 @@ def nvcc_path():
     return found
 
 
+_INCLUDE = re.compile(r'^#include "([^"]+)"', re.M)
+
+
+def _inputs(source):
+    """`source`, then the files of `csrc/` it includes, directly or not."""
+    files = [source]
+    for path in files:                      # grows while it is walked
+        for name in _INCLUDE.findall(path.read_text()):
+            if CSRC / name not in files:
+                files.append(CSRC / name)
+    return files
+
+
 def library_path(source):
     """Where `build()` puts the library of `source` for its current text."""
-    digest = hashlib.sha256(source.read_bytes())
-    for header in HEADERS:
-        digest.update(header.read_bytes())
+    digest = hashlib.sha256()
+    for path in _inputs(source):
+        digest.update(path.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{source.stem}-{digest.hexdigest()[:16]}.so"
 
@@ -127,19 +149,21 @@ def load():
     return SimpleNamespace(**fns)
 
 
-_KERNEL_NAME = re.compile(r"((?:[a-z]+_)+kernel)IL[ij](\d+)E")
+_KERNEL_NAME = re.compile(r"((?:[a-z]+_)+kernel)IL[ij](\d+)E(Lb1E)?")
 
 
 def ptxas_summary(report):
     """The `-Xptxas -v` report of one build -> [{kernel, registers,
     stack, spill_stores, spill_loads}] per entry function, the kernel named
-    with its template argument (limb words)."""
+    with its first template argument (limb words), and ", a!=0" after it
+    for an instantiation of RCB16 algorithm 1 (GA true)."""
     out, cur = [], None
     for line in report.splitlines():
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
             m = _KERNEL_NAME.search(mangled)
-            name = f"{m.group(1)}<{m.group(2)}>" if m else mangled
+            name = (f"{m.group(1)}<{m.group(2)}"
+                    f"{', a!=0' if m.group(3) else ''}>" if m else mangled)
             cur = {"kernel": name}
             out.append(cur)
         elif cur is not None and "stack frame" in line:

@@ -121,8 +121,10 @@ def _ec_add_a0_tail(xy, yz, xz, t0, m, n, ctx, mul=mont_mul):
 
 
 def _ec_add_general_tail(t0, t1, t2, xy, yz, xz, ctx: CurveCtx):
-    """RCB16 algorithm 1 tail (general a: ed25519's Weierstrass form).
-    Plain PyTorch only: the CUDA kernels cover a = 0."""
+    """RCB16 algorithm 1 tail (general a: ed25519's Weierstrass form), the
+    plain version of the kernels' `add_tail_a` (`csrc/ec_common.cuh`) and
+    `add_tail_a_l` (`csrc/ec_lanes.cuh`): kernels 2, 3 and 4 run it on the
+    card for 8-word fields."""
     f = ctx.fp
     consts = torch.as_tensor(ctx.gen_consts, device=xz.device).reshape(
         (f.L, 6) + (1,) * (xz.ndim - 1))

@@ -16,6 +16,14 @@ loops of complete adds that the MSM's combine runs (the JAX package's
 output: `ec_gather_sum` (axis sums and folds), `ec_window_totals` and
 `ec_horner`.
 
+The group law is RCB16's complete addition: algorithm 7 (algorithm 8 for
+kernel 1's mixed add) for a = 0 curves, and for ed25519, the one curve
+with a != 0, algorithm 1 (18 products an add), which kernels 2, 3 and 4
+carry as a compile-time form beside algorithm 7 (`_consts` gives them a,
+a^2 and 3b), built into a library of its own (`csrc/ec_kernels_a.cu`).
+Kernels 1 and 5 take a = 0 only: their launchers refuse an a != 0 curve,
+which the MSM never gives kernel 1 (`msm.uses_mixed`).
+
 Kernel 5 computes what kernel 4 computes, on kernel 4's operands, with the
 REDC of each Montgomery product as byte Toeplitz products on the int8
 tensor cores; nothing in the JAX package calls its TPU kernel, and no path
@@ -37,8 +45,10 @@ There is no fallback from the kernel to the plain version.  The `*32`
 functions launch a kernel on operands already packed, with no checks, so
 the kernel can be timed alone.  `launches[name]` counts kernel launches,
 and only those, also of the fused IPA's `bp_ipa_challenge`
-(`ops/transcript_kernels.py`, launched through `_launch`);
-`form_launches` splits kernel 3's by form.
+(`ops/transcript_kernels.py`) and of the roofline harness's chain kernel
+(`utils/roofline.py`), launched through `_launch`;
+`form_launches` splits kernel 3's by form, and `a_nonzero_launches`
+counts, of each, those of the a != 0 build (algorithm 1).
 """
 
 import functools
@@ -52,51 +62,86 @@ from .field import mont_mul, mont_mul_mxu, mxu_tables, pack32, unpack32
 
 launches = {"bucket_rounds_mixed": 0, "bucket_rounds_proj": 0, "ec_add": 0,
             "bucket_round_add": 0, "bucket_round_add_mxu": 0,
-            "ipa_challenge": 0}
+            "ipa_challenge": 0, "chain": 0}
 # kernel 3's launches by form (they sum to launches["ec_add"])
 form_launches = {"pairwise": 0, "gather_sum": 0, "window_totals": 0,
                  "horner": 0}
+# the launches of the a != 0 builds (RCB16 algorithm 1), a part of the
+# counts above: by kernel, and kernel 3's also by form (`ec_add:<form>`)
+a_nonzero_launches = {"bucket_rounds_proj": 0, "ec_add": 0,
+                      "bucket_round_add": 0, "chain": 0,
+                      **{f"ec_add:{form}": 0 for form in form_launches}}
 
 
 def reset_launches():
-    for counts in (launches, form_launches):
+    for counts in (launches, form_launches, a_nonzero_launches):
         for name in counts:
             counts[name] = 0
 
 
-def _on_card(t, name, ctx):
-    """True for a CUDA tensor, False for a CPU one; raises otherwise or when
-    the kernels do not cover the curve (they implement a = 0)."""
+def _on_card(t, name):
+    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
     if t.device.type == "cpu":
         return False
     if t.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {t.device}")
-    if not ctx.a_is_zero:
-        raise NotImplementedError(
-            f"{name}: the CUDA kernels cover a = 0 curves, not {ctx.cv.name}")
     return True
 
 
 @functools.cache
 def _consts(ctx: CurveCtx):
-    """Host uint32 words [p, Montgomery one, -p^-1 mod 2^32, 3b], the
-    kernels' field constants (copied into the launch's parameters)."""
+    """Host uint32 words, the group kernels' curve constants (copied into
+    the launch's parameters; `csrc/ec_common.cuh` make_field, then
+    make_curve_a): p, Montgomery one, -p^-1 mod 2^32 and 3b as one word
+    for a = 0 (0 for a != 0), then a, a^2 and 3b in Montgomery form,
+    NL words each, for a != 0 (all 0 for a = 0).  The kernels take the
+    a != 0 form (RCB16 algorithm 1) where a is not 0."""
     fp = ctx.fp
     nl = fp.L // 2
     words = lambda v: [(v >> (32 * k)) & 0xFFFFFFFF for k in range(nl)]
     n0inv = (-pow(fp.mod_int, -1, 1 << 32)) % (1 << 32)
+    p, mont_r = ctx.cv.p, ctx.cv.fp.mont_r
+    mont = lambda v: words(v % p * mont_r % p)
+    if ctx.a_is_zero:
+        small_b3, general = ctx.b3, [0] * (3 * nl)
+    else:
+        a = ctx.cv.a
+        small_b3, general = 0, mont(a) + mont(a * a) + mont(ctx.b3)
     return np.array(words(fp.mod_int) + words(fp.fp.mont_one)
-                    + [n0inv, ctx.b3], dtype=np.uint32)
+                    + [n0inv, small_b3] + general, dtype=np.uint32)
 
 
-def _launch(fn_name, key, *args, form=None):
-    stream = torch.cuda.current_stream().cuda_stream
-    rc = getattr(build.load(), fn_name)(*args, stream)
+# what a launcher returns for a field it does not build
+_CUDA_ERROR_INVALID_VALUE = 1
+
+
+def _launch(fn_name, key, *args, form=None, ctx=None):
+    """Call the C launcher `fn_name` with `args` and PyTorch's current
+    stream; count the launch under `key`, kernel 3's also under `form`.
+    `ctx`: the curve of a kernel whose build depends on it.  For an a != 0
+    curve the launch goes to the a != 0 library's launcher, `fn_name` +
+    "_a", where it has one, and counts in `a_nonzero_launches` too; a
+    launcher that does not build the curve's field refuses it (kernels 1
+    and 5, or a != 0 at another width): NotImplementedError."""
+    lib = build.load()
+    general = ctx is not None and not ctx.a_is_zero
+    fn = getattr(lib, f"{fn_name}_a", None) if general else None
+    rc = (fn or getattr(lib, fn_name))(
+        *args, torch.cuda.current_stream().cuda_stream)
+    if rc == _CUDA_ERROR_INVALID_VALUE and general:
+        raise NotImplementedError(
+            f"{fn_name}: no CUDA kernel for {ctx.cv.name} (a != 0, "
+            f"{ctx.fp.L // 2} words): RCB16 algorithm 1 is built into "
+            "kernels 2, 3 and 4 for 8-word fields")
     if rc != 0:
         raise RuntimeError(f"{fn_name}: CUDA error {rc} at launch")
     launches[key] += 1
     if form is not None:
         form_launches[form] += 1
+    if general:
+        a_nonzero_launches[key] += 1
+        if form is not None:
+            a_nonzero_launches[f"ec_add:{form}"] += 1
 
 
 def _is_packed(points, ctx, name):
@@ -173,7 +218,7 @@ def _check_buckets(name, acc32, table32, ids, found, ctx, width,
 def _run_buckets(name, plain, bare, acc32, table32, ids, found, ctx):
     """A bucket kernel's wrapper after its checks: the plain version for
     CPU tensors, else one launch into a new accumulator tensor."""
-    if not _on_card(acc32, name, ctx):
+    if not _on_card(acc32, name):
         return plain(acc32, table32, ids, found, ctx)
     _require_contiguous(name, acc32, table32, ids, found)
     out = torch.empty_like(acc32)
@@ -192,84 +237,82 @@ def packed_identity(ctx: CurveCtx, shape, device):
     return pack32(ctx.identity_like(shape, device), 1)
 
 
-def _require_card(key, ctx, *tensors):
-    if not all(_on_card(t, key, ctx) for t in tensors):
+def _require_card(key, *tensors):
+    if not all(_on_card(t, key) for t in tensors):
         raise ValueError(f"{key}: packed operands must be CUDA tensors")
 
 
 def bucket_rounds_mixed32(out32, acc32, table32, ids, found, ctx: CurveCtx):
     """Kernel 1 on packed CUDA operands, unchecked: writes `out32`
     (3, NL, S), which may be `acc32` itself."""
-    _require_card("bucket_rounds_mixed", ctx, out32, acc32, table32, ids,
-                  found)
+    _require_card("bucket_rounds_mixed", out32, acc32, table32, ids, found)
     R_c, S = found.shape
     _launch("bp_bucket_rounds_mixed", "bucket_rounds_mixed",
             out32.data_ptr(), acc32.data_ptr(), table32.data_ptr(),
             ids.data_ptr(), found.data_ptr(), S, R_c, ctx.fp.L // 2,
-            _consts(ctx).ctypes.data)
+            _consts(ctx).ctypes.data, ctx=ctx)
 
 
 def bucket_rounds_proj32(out32, acc32, table32, ids, found, ctx: CurveCtx):
     """Kernel 2 on packed CUDA operands, unchecked: writes `out32`
     (3, NL, S), which may be `acc32` itself."""
-    _require_card("bucket_rounds_proj", ctx, out32, acc32, table32, ids,
-                  found)
+    _require_card("bucket_rounds_proj", out32, acc32, table32, ids, found)
     R_c, S = found.shape
     _launch("bp_bucket_rounds_proj", "bucket_rounds_proj",
             out32.data_ptr(), acc32.data_ptr(), table32.data_ptr(),
             ids.data_ptr(), found.data_ptr(), S, R_c, ctx.fp.L // 2,
-            _consts(ctx).ctypes.data)
+            _consts(ctx).ctypes.data, ctx=ctx)
 
 
 def bucket_round_add32(out32, acc32, table32, ids, found, ctx: CurveCtx):
     """Kernel 4 on packed CUDA operands, unchecked: writes `out32`
     (3, NL, S), which may be `acc32` itself."""
-    _require_card("bucket_round_add", ctx, out32, acc32, table32, ids,
-                  found)
+    _require_card("bucket_round_add", out32, acc32, table32, ids, found)
     _launch("bp_bucket_round_add", "bucket_round_add", out32.data_ptr(),
             acc32.data_ptr(), table32.data_ptr(), ids.data_ptr(),
             found.data_ptr(), found.shape[0], ctx.fp.L // 2,
-            _consts(ctx).ctypes.data)
+            _consts(ctx).ctypes.data, ctx=ctx)
 
 
 def ec_add32(P32, Q32, ctx: CurveCtx):
     """Kernel 3, pairwise, on packed (3, NL, n) int32 operands -> packed
     P + Q."""
-    _require_card("ec_add", ctx, P32, Q32)
+    _require_card("ec_add", P32, Q32)
     out = torch.empty_like(P32)
     _launch("bp_ec_add", "ec_add", out.data_ptr(), P32.data_ptr(),
             Q32.data_ptr(), P32.shape[2], ctx.fp.L // 2,
-            _consts(ctx).ctypes.data, form="pairwise")
+            _consts(ctx).ctypes.data, form="pairwise", ctx=ctx)
     return out
 
 
 def ec_gather_sum32(out32, P32, idx, from_identity, ctx: CurveCtx):
     """Kernel 3's gather-sum form on packed CUDA operands, unchecked."""
-    _require_card("ec_add", ctx, out32, P32, idx)
+    _require_card("ec_add", out32, P32, idx)
     n_out, m = idx.shape
     _launch("bp_ec_gather_sum", "ec_add", out32.data_ptr(), P32.data_ptr(),
             idx.data_ptr(), n_out, m, P32.shape[2], int(bool(from_identity)),
-            ctx.fp.L // 2, _consts(ctx).ctypes.data, form="gather_sum")
+            ctx.fp.L // 2, _consts(ctx).ctypes.data, form="gather_sum",
+            ctx=ctx)
 
 
 def ec_window_totals32(out32, rowsum32, colsum32, dbl, ctx: CurveCtx):
     """Kernel 3's window-totals form on packed CUDA operands, unchecked:
     rowsum32 (3, NL, W, G), colsum32 (3, NL, W, K), out32 (3, NL, W)."""
-    _require_card("ec_add", ctx, out32, rowsum32, colsum32)
+    _require_card("ec_add", out32, rowsum32, colsum32)
     _, _, W, G = rowsum32.shape
     _launch("bp_ec_window_totals", "ec_add", out32.data_ptr(),
             rowsum32.data_ptr(), colsum32.data_ptr(), W, G,
             colsum32.shape[3], dbl, ctx.fp.L // 2, _consts(ctx).ctypes.data,
-            form="window_totals")
+            form="window_totals", ctx=ctx)
 
 
 def ec_horner32(out32, totals32, wps, c, ctx: CurveCtx):
     """Kernel 3's Horner form on packed CUDA operands, unchecked:
     totals32 (3, NL, n_sets*wps), out32 (3, NL, n_sets)."""
-    _require_card("ec_add", ctx, out32, totals32)
+    _require_card("ec_add", out32, totals32)
     _launch("bp_ec_horner", "ec_add", out32.data_ptr(), totals32.data_ptr(),
             out32.shape[2], wps, c, ctx.fp.L // 2, _consts(ctx).ctypes.data,
-            form="horner")
+            form="horner", ctx=ctx)
 
 
 # ---------------------------------------------------------------------------
@@ -357,7 +400,7 @@ def ec_add(P, Q, ctx: CurveCtx):
                          f"{tuple(Q.shape)} ({P.dtype}, {Q.dtype}) must "
                          "match")
     _same_device("ec_add", P, Q)
-    if not _on_card(P, "ec_add", ctx):
+    if not _on_card(P, "ec_add"):
         if packed:
             return pack32(ec_add_plain(unpack32(P, 1), unpack32(Q, 1), ctx),
                           1)
@@ -408,7 +451,7 @@ def ec_gather_sum(P32, idx, from_identity, ctx: CurveCtx):
         raise ValueError(f"{name}: idx must be (n_out, m) int32, got "
                          f"{tuple(idx.shape)} {idx.dtype}")
     _same_device(name, P32, idx)
-    if not _on_card(P32, name, ctx):
+    if not _on_card(P32, name):
         return ec_gather_sum_plain(P32, idx, from_identity, ctx)
     _require_contiguous(name, P32, idx)
     out = torch.empty((3, P32.shape[1], idx.shape[0]), dtype=torch.int32,
@@ -451,7 +494,7 @@ def ec_window_totals(rowsum32, colsum32, dbl, ctx: CurveCtx):
     if colsum32.shape[2] != W:
         raise ValueError(f"{name}: {W} and {colsum32.shape[2]} windows")
     _same_device(name, rowsum32, colsum32)
-    if not _on_card(rowsum32, name, ctx):
+    if not _on_card(rowsum32, name):
         return ec_window_totals_plain(rowsum32, colsum32, dbl, ctx)
     _require_contiguous(name, rowsum32, colsum32)
     out = torch.empty((3, rowsum32.shape[1], W), dtype=torch.int32,
@@ -483,7 +526,7 @@ def ec_horner(totals32, wps, c, ctx: CurveCtx):
     if wps <= 0 or totals32.shape[2] % wps:
         raise ValueError(f"{name}: {totals32.shape[2]} totals are not sets "
                          f"of {wps}")
-    if not _on_card(totals32, name, ctx):
+    if not _on_card(totals32, name):
         return ec_horner_plain(totals32, wps, c, ctx)
     _require_contiguous(name, totals32)
     out = torch.empty((3, totals32.shape[1], totals32.shape[2] // wps),
@@ -616,13 +659,12 @@ def bucket_round_add_mxu32(out32, acc32, table32, ids, found,
                            ctx: CurveCtx):
     """Kernel 5 on packed CUDA operands, unchecked: writes `out32`
     (3, NL, S), which may be `acc32` itself."""
-    _require_card("bucket_round_add_mxu", ctx, out32, acc32, table32, ids,
-                  found)
+    _require_card("bucket_round_add_mxu", out32, acc32, table32, ids, found)
     frags = _mxu_fragments_on(ctx, acc32.device)
     _launch("bp_bucket_round_add_mxu", "bucket_round_add_mxu",
             out32.data_ptr(), acc32.data_ptr(), table32.data_ptr(),
             ids.data_ptr(), found.data_ptr(), found.shape[0], ctx.fp.L // 2,
-            _consts(ctx).ctypes.data, frags.data_ptr())
+            _consts(ctx).ctypes.data, frags.data_ptr(), ctx=ctx)
 
 
 def bucket_round_add_mxu(acc32, table32, ids, found, ctx: CurveCtx):

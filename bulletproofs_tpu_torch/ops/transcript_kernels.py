@@ -127,7 +127,7 @@ def ipa_challenge(pts32, state, regs, ctx: CurveCtx):
     if ctx.cv.ed_d is not None:
         raise ValueError(f"{name}: {ctx.cv.name} serializes Edwards "
                          "coordinates")
-    if not _on_card(pts32, name, ctx):
+    if not _on_card(pts32, name):
         return ipa_challenge_plain(pts32, state, regs, ctx)
     _require_contiguous(name, pts32, state)
     dev = pts32.device

@@ -13,6 +13,7 @@ ported; the port has one path.
 from ..ops.ec_host import commit_to_field_element
 from ..ops.field_host import Scalar
 from ..utils.errors import MissingAssignment
+from ..utils.metrics import metrics
 from .constraint_system import ConstraintSystem, RandomizedConstraintSystem
 from .linear_combination import (COMMITTED, MULT_LEFT, MULT_OUTPUT,
                                  MULT_RIGHT, LinearCombination, Variable)
@@ -155,9 +156,14 @@ class Prover(ConstraintSystem):
         """`prover.rs:322-593` on `self.device` -> R1CSProof.  fused: the
         IPA's form (`ops/prover_device.py: create_ipp_implicit`; the
         default runs it fused on a card and per round on the CPU); the
-        proofs are equal."""
+        proofs are equal.  Records `prove_calls`, `multipliers`,
+        `constraints` and the span "prove" (`utils/metrics.py`)."""
         from ..ops.prover_device import prove_device
-        return prove_device(self, G, H, device=self.device, fused=fused)
+        metrics.incr("prove_calls")
+        metrics.incr("multipliers", self.num_multipliers())
+        metrics.incr("constraints", self.num_constraints())
+        with metrics.span("prove"):
+            return prove_device(self, G, H, device=self.device, fused=fused)
 
 
 class RandomizingProver(RandomizedConstraintSystem):

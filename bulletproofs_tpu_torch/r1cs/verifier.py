@@ -19,6 +19,7 @@ from ..ops.ec_host import msm_host
 from ..ops.field_host import Scalar
 from ..utils.errors import (InvalidGeneratorsLength, VerificationError,
                             combined_batch_check)
+from ..utils.metrics import metrics
 from .constraint_system import ConstraintSystem, RandomizedConstraintSystem
 from .linear_combination import (COMMITTED, MULT_LEFT, MULT_OUTPUT,
                                  MULT_RIGHT, LinearCombination, Variable)
@@ -161,9 +162,12 @@ class Verifier(ConstraintSystem):
 
     def verify(self, proof, g, h, G, H):
         """`verifier.rs:267-457` on `self.device`; raises
-        VerificationError."""
+        VerificationError.  Records `verify_calls` and the span "verify"
+        (`utils/metrics.py`)."""
         from ..ops.verifier_device import verify_device
-        verify_device(self, proof, g, h, G, H, device=self.device)
+        metrics.incr("verify_calls")
+        with metrics.span("verify"):
+            verify_device(self, proof, g, h, G, H, device=self.device)
 
     def _verify(self, proof, g, h, G, H):
         """The host check: `_assemble`'s mega-MSM over `msm_host`."""

@@ -7,7 +7,9 @@ n = 2048), the Poseidon / sparse-Merkle-tree workloads (bulk hashing,
 batch updates, the depth-12 SMT-4 leaf-inclusion proof), the batch
 verifiers (8 range proofs in one check, 4 IPA proofs in one check),
 every other gadget's proof, and the sharded MSM and prover on a mesh of
-4 shards of the card, of BLS12-381 end to end.
+4 shards of the card, of BLS12-381 end to end; then ed25519 (a != 0:
+RCB16 algorithm 1 in kernels 2-4) end to end, and the H100 roofline of the
+group law and the product.
 
     python3 chip_smoke.py [--seed S] [--n N]
     python3 chip_smoke.py --trace-ipa REPS   # phase 6b's traces alone
@@ -19,9 +21,10 @@ package of the tree it stands in.
 
 Phases, each printing one JSON line with its seconds:
   0 device   the card's name and power limit (nvidia-smi);
-  1 build    nvcc of csrc/ec_kernels.cu, csrc/mxu_kernels.cu and
-             csrc/transcript_kernels.cu, in parallel, into ctypes
-             libraries; ptxas's registers, stack and spills (those of
+  1 build    nvcc of csrc/ec_kernels.cu, csrc/mxu_kernels.cu,
+             csrc/roofline_kernels.cu and csrc/transcript_kernels.cu, in
+             parallel, into ctypes libraries; ptxas's registers, stack and
+             spills (the a != 0 instantiations named `<8, a!=0>`; those of
              `bp_ipa_challenge` again on their own line, `kernel_ptxas`,
              and in its record); kernel 5's SASS holds IMMA and no IDP.4A;
   2 kernels  each kernel against its plain version at the width each path
@@ -33,9 +36,10 @@ Phases, each printing one JSON line with its seconds:
              sequential forms (the
              folds, row and column sums, window totals and Horner of the
              combine) at the range proof's and the MSM's combine shapes,
-             and the fused IPA's `bp_ipa_challenge` on a projective point
+             the fused IPA's `bp_ipa_challenge` on a projective point
              and the identity from a transcript whose round crosses the
-             STROBE rate; with the bare kernel's time on operands
+             STROBE rate, and the roofline's chain kernel (both forms, 100
+             steps over 8192 inputs); with the bare kernel's time on operands
              prepared beforehand (`ms`), the wrapper's time with its
              checks and any 16/32-bit limb packing (`wrapper_ms`), the
              plain version's time and the card's bound for the same work;
@@ -125,18 +129,45 @@ Phases, each printing one JSON line with its seconds:
              rejected, the stages of one more proof; after the paths, the
              bucket kernels, kernel 3 pairwise and the combine's forms at
              the per-shard shapes (`kernels_at`);
+ 13 ed25519  under `using_curve(ED25519)`, with the plain add made to
+             raise on a CUDA tensor (`no_plain_add_on_card`): phases 3-4
+             on ed25519 inputs (the n-point uniform and bit-vector MSMs,
+             1 + 3 runs each of `msm_hybrid` and `msm_device`, against the
+             host sums), phase 5 at n (per round: Edwards transcripts;
+             the host check, a + 1 rejected, the per-round kernel's proof
+             identical), phase 6 on config 2 (the seed-2 proof's sha256
+             against tests/vectors/torch_ed25519.json, verified, the host
+             check, t_x + 1 rejected), and the three gadget proofs of the
+             JAX package's tests/test_ed25519.py at n = 512
+             (`ed25519_gadget_case`: each sha256 against the vector,
+             verified, tampered rejected); kernels 2-4 launch their
+             a != 0 builds only, and kernel 1 and `bp_ipa_challenge`
+             must not launch (`NOT_ON_PATH`); after
+             the paths, phase 2's checks on ed25519 (kernels 2-4, kernel 3
+             pairwise and its forms, 18 products an add in the bounds)
+             and `kernels_at` at the shapes of the MSMs the phase ran;
+ 14 roofline `utils/roofline.py: roofline_report` on BLS12-381 and
+             ed25519 (one timed launch of each form of the chain kernel,
+             `csrc/roofline_kernels.cu`: 100 dependent adds or products
+             over 8192 distinct canonical inputs; measured and
+             speed-of-light rates, utilisation), with the card's name and
+             power limit; phase 2 holds the chain kernel bit-exact against
+             its plain version at that size on both curves;
  11 launches the launch counts of each path (phases 3-4, 5, 6, 6b, 7, 9,
-             10, 8, 12), kernel 3's also by form, each kernel of a path (and
-             each form of kernel 3 the path runs, `PATHS`) required > 0
-             there, and the counts of one range proof and verification, one
-             IPA proof and verification, one fused and one per-round IPA
-             proof, one SMT-4 proof and verification, one batch check,
-             each gadget's proof and verification and one sharded proof.
+             10, 8, 12, 13, 14), kernel 3's also by form, each split by
+             build (a = 0, and a != 0 under `<kernel>:a!=0`), each build
+             of a kernel a path runs (and each form of kernel 3, `PATHS`)
+             required > 0 there, and the counts of one range proof and
+             verification, one IPA proof and verification, one fused and
+             one per-round IPA proof, one SMT-4 proof and verification, one
+             batch check, each gadget's proof and verification, one sharded
+             proof and ed25519's calls.
 The last line is {"ok": true, "device": {...}}.  Any failure raises and
 exits non-zero before it.  Without a CUDA card the script exits 2.
 """
 
 import argparse
+import contextlib
 import hashlib
 import functools
 import json
@@ -149,9 +180,9 @@ from pathlib import Path
 import torch
 
 import bulletproofs_tpu_torch as bt
-from bulletproofs_tpu_torch.config import BLS381, using_curve
+from bulletproofs_tpu_torch.config import BLS381, ED25519, curve, using_curve
 from bulletproofs_tpu_torch.ipp import verification_scalars
-from bulletproofs_tpu_torch.ops import build, ec_kernels as ek
+from bulletproofs_tpu_torch.ops import build, ec as ec_mod, ec_kernels as ek
 from bulletproofs_tpu_torch.ops import transcript_kernels as tk
 from bulletproofs_tpu_torch.ops.transcript_device import DeviceTranscript
 from bulletproofs_tpu_torch.ops import msm as msm_mod
@@ -175,6 +206,11 @@ from bulletproofs_tpu_torch.ops.field_host import Scalar, inner_product
 from bulletproofs_tpu_torch.utils.errors import (BatchVerificationError,
                                                  VerificationError)
 from bulletproofs_tpu_torch.utils.hash_db import InMemoryHashDb
+from bulletproofs_tpu_torch.utils import roofline
+from bulletproofs_tpu_torch.utils.roofline import (HBM_BYTES_PER_S,
+                                                   IMAD_PER_S, INT8_MAC_PER_S,
+                                                   bound, imad_per_mont_mul,
+                                                   mont_muls_per_add)
 from bulletproofs_tpu_torch.parallel import (create_ipp_sharded, make_mesh,
                                              make_mesh_2d, msm_multi_sharded,
                                              msm_sharded, msm_sharded_2d,
@@ -182,15 +218,8 @@ from bulletproofs_tpu_torch.parallel import (create_ipp_sharded, make_mesh,
 from bulletproofs_tpu_torch.parallel import sharded_msm as sharded_msm_mod
 from bulletproofs_tpu_torch.parallel import sharded_prover
 
-# Bound model (NVIDIA H100 SXM data sheet, at its 700 W limit).  HBM3 at
-# 3.35 TB/s.  Integer multiply-adds: the float32 rate of 67 TFLOP/s counts
-# an FMA as 2 operations on 128 lanes per SM; a 32-bit IMAD issues on 64
-# lanes per SM, so 67e12 / 2 / 2 IMAD per second.
-HBM_BYTES_PER_S = 3.35e12
-IMAD_PER_S = 67e12 / 4
-# Dense int8 tensor-core rate of the same data sheet: 1979e12 operations a
-# second, a multiply-add counted as 2.
-INT8_MAC_PER_S = 1979e12 / 2
+# The bound model (HBM_BYTES_PER_S, IMAD_PER_S, INT8_MAC_PER_S, the IMADs
+# of a product and `bound`) is the H100's of utils/roofline.py.
 
 KERNEL_SOURCE = "bulletproofs_tpu_torch/csrc/ec_kernels.cu"
 REPLACES = {
@@ -204,10 +233,15 @@ REPLACES = {
     "ipa_challenge": "bulletproofs_tpu/ops/transcript_device.py:129 "
                      "(DeviceTranscript, serialize_points :273), "
                      "bulletproofs_tpu/ops/keccak_jax.py:60",
+    # XLA code, not a Pallas kernel: the roofline harness's jitted
+    # fori_loop chains
+    "chain": "bulletproofs_tpu/utils/roofline.py:49 (_ec_add_chain), "
+             ":56 (_mont_mul_chain)",
 }
 SOURCES = {name: KERNEL_SOURCE for name in REPLACES}
 SOURCES["bucket_round_add_mxu"] = "bulletproofs_tpu_torch/csrc/mxu_kernels.cu"
 SOURCES["ipa_challenge"] = "bulletproofs_tpu_torch/csrc/transcript_kernels.cu"
+SOURCES["chain"] = "bulletproofs_tpu_torch/csrc/roofline_kernels.cu"
 # The kernels each path launches, kernel 3 by form (`launch_counts`): the
 # MSM phases 3-4, the IPA phase 5, the range proof phase 6, the fused IPA
 # against the per-round one (phase 6b), the sparse Merkle tree phase 7, the
@@ -238,6 +272,28 @@ PATHS = {
     "sharded": ("bucket_rounds_mixed", "bucket_rounds_proj",
                 "ec_add:pairwise", "ec_add:gather_sum",
                 "ec_add:window_totals"),
+    # a != 0, the a != 0 builds (`:a!=0`): every bucket pass on kernel 2
+    # (kernel 4 for the IPA's per-round kernel form), the IPA per round
+    # (Edwards transcripts)
+    "ed25519": tuple(f"{k}:a!=0" for k in (
+        "bucket_rounds_proj", "bucket_round_add", "ec_add:pairwise",
+        "ec_add:gather_sum", "ec_add:window_totals", "ec_add:horner")),
+    # BLS12-381's chain (its mont_mul form also on ed25519, whose product
+    # runs the a = 0 build of its width) and ed25519's add chain
+    "roofline": ("chain", "chain:a!=0"),
+}
+# kernels a path must never launch: kernel 1 and `bp_ipa_challenge` take
+# no a != 0 / Edwards curve, and no a = 0 build runs an ed25519 add
+NOT_ON_PATH = {"ed25519": ("bucket_rounds_mixed", "bucket_round_add_mxu",
+                           "ipa_challenge", "bucket_rounds_proj",
+                           "bucket_round_add", "ec_add", "chain")}
+# each wrapper's kernel functions, as ptxas names them (`build.ptxas_summary`)
+KERNEL_FUNCTIONS = {
+    "bucket_rounds_proj": ("bucket_rounds_proj_kernel",),
+    "bucket_round_add": ("bucket_round_add_kernel",),
+    "ec_add": ("ec_add_kernel", "ec_gather_sum_kernel",
+               "ec_window_totals_kernel", "ec_horner_kernel"),
+    "chain": ("ec_add_chain_kernel", "mont_mul_chain_kernel"),
 }
 # kernel 3's forms in phase 2 -> the kernel form each launches
 FORM_KERNEL = {"split_fold": "gather_sum", "dup_fold": "gather_sum",
@@ -288,20 +344,6 @@ def time_ms(fn, device, reps):
     for _ in range(reps):
         out = fn()
     return (time.perf_counter() - t0) * 1e3 / reps, out
-
-
-def imad_per_mont_mul(ctx):
-    """32-bit IMAD instructions of one CIOS Montgomery product on NL = L/2
-    words: 2*NL^2 + NL multiply-adds, each a low and a high IMAD."""
-    nl = ctx.fp.L // 2
-    return 2 * (2 * nl * nl + nl)
-
-
-def bound(n_bytes, n_imad):
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_imad / IMAD_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else
-                                 "operations")
 
 
 def mxu_bound(ctx, found, n_bytes):
@@ -388,21 +430,21 @@ def _random_points(rnd, m, cv):
     return [G1.random(rnd, cv) for _ in range(m)]
 
 
-def ipa_slots(n):
+def ipa_slots(n, ctx):
     """Bucket slots of the IPA's two-set MSM over 2n + 2 points."""
-    ctx = CurveCtx(BLS381)
     c = msm_mod.pick_window(2 * n + 2)
     return msm_mod.window_plan(ctx, c, n_sets=2, dup=True)[0].shape[0] << c
 
 
-def combine_shapes(n, n_sets, c=None, horner=False, dup=True):
+def combine_shapes(n, n_sets, c=None, horner=False, dup=True, ctx=None):
     """The combine's shapes for an MSM of n points and n_sets scalar sets:
     c (by default pick_window(n)) and `window_plan(dup=dup)`'s physical
     rows W' and base windows W, with G, K of `bucket_rowcol`; horner:
     whether the path runs the window Horner on the card (`msm_device`;
     `msm_hybrid` runs it on the host); dup=False: the plan of the sharded
-    MSMs, without duplicate rows."""
-    ctx = CurveCtx(BLS381)
+    MSMs, without duplicate rows; ctx: the curve's (by default the active
+    curve's)."""
+    ctx = ctx or CurveCtx(curve())
     c = c or msm_mod.pick_window(n)
     ranges, splits, *more = msm_mod.window_plan(ctx, c, n_sets=n_sets,
                                                 dup=dup)
@@ -415,7 +457,7 @@ def combine_shapes(n, n_sets, c=None, horner=False, dup=True):
             "horner": horner}
 
 
-def phase_kernels(device, n, seed, reps=5, r1cs_msm_n=4098):
+def phase_kernels(device, n, seed, reps=5, r1cs_msm_n=4098, cv=None):
     """Each kernel against its plain version at the width of its path: the
     chunked kernels at the MSM's S = W*B slots of `window_plan(dup=True)`
     at c = pick_window(n) and R_c = EC_CHUNK rounds, kernel 1 also at the
@@ -427,13 +469,18 @@ def phase_kernels(device, n, seed, reps=5, r1cs_msm_n=4098):
     (`mxu_bound`); kernel 3 pairwise at n + 3 points
     and its sequential forms at the combine's shapes of the range proof's
     two-set MSM (r1cs_msm_n points) and of the n-point MSM.  Half the
-    accumulators start at the identity.  Returns (per-kernel records,
-    `check_msms`, which checks the kernels at the shapes of a path's MSMs
-    once the path has run)."""
+    accumulators start at the identity.  cv: the curve (by default the
+    active one); for a != 0 (ed25519) only kernels 2, 3 and 4, which are
+    built for it (RCB16 algorithm 1, 18 products an add), and kernel 1's
+    MSM shapes go to kernel 2, as `msm.uses_mixed` sends them.  Returns
+    (per-kernel records, `check_msms`, which checks the kernels at the
+    shapes of a path's MSMs once the path has run)."""
     t0 = time.time()
     device = torch.device(device)
-    cv = BLS381
+    cv = cv or curve()
     ctx = CurveCtx(cv)
+    a0 = ctx.a_is_zero
+    per_add = mont_muls_per_add(ctx)
     L = ctx.fp.L
     c = msm_mod.pick_window(n)
     ranges, _, _ = msm_mod.window_plan(ctx, c, dup=True)
@@ -489,7 +536,7 @@ def phase_kernels(device, n, seed, reps=5, r1cs_msm_n=4098):
     _, table_pre = tables(W * n)          # kernel 2 after pre-reduction
     ids_pre, found_pre = slot_grid(R_c, S, W * n)
 
-    S_ipa = ipa_slots(n)                  # the IPA's two-set MSM
+    S_ipa = ipa_slots(n, ctx)             # the IPA's two-set MSM
     buckets_ipa = accumulators(S_ipa)
     table32_ipa, table_ipa = tables(2 * n + 2)
     ids_ipa, found_ipa_c = slot_grid(R_c, S_ipa, 2 * n + 2)
@@ -515,13 +562,13 @@ def phase_kernels(device, n, seed, reps=5, r1cs_msm_n=4098):
         """(bytes, IMADs) of the rounds the data needs: the accumulators
         read and written once, `found` read, a row (and, for the kernels
         that read a table, its point id) read only where its slot is
-        occupied; an occupied slot's add takes 11 (mixed) or 12 products,
-        an empty one `empty_muls` (a projective add of the identity is
-        (X*Y : Y*Y : Z*Y), 3 products; the mixed kernel keeps the slot,
-        0)."""
+        occupied; an occupied slot's add takes 11 (mixed), 12 (a = 0) or
+        18 (a != 0) products, an empty one `empty_muls` (a projective add
+        of the identity is (X*Y : Y*Y : Z*Y), 3 products; the mixed kernel
+        keeps the slot, 0)."""
         slots = found_k.numel()
         live = int(found_k.sum())
-        full = 11 if row_words == 2 * nl else 12
+        full = 11 if row_words == 2 * nl else per_add
         n_bytes = (2 * pt_words * found_k.shape[-1]
                    + live * (row_words + ids_read) + slots) * w32
         return n_bytes, (live * full + (slots - live) * empty_muls) * imad
@@ -570,7 +617,8 @@ def phase_kernels(device, n, seed, reps=5, r1cs_msm_n=4098):
          rounds_work(found_pre, 3 * nl, 3, ids_read=True),
          {**chunk_shape, "table_rows": W * n}),
         ("ec_add", ek.ec_add, ek.ec_add_plain, (P, Q), bare_add,
-         (3 * pt_words * n_add * w32, n_add * 12 * imad), {"n": n_add}),
+         (3 * pt_words * n_add * w32, n_add * per_add * imad),
+         {"n": n_add}),
         ("bucket_round_add", ek.bucket_round_add,
          ek.bucket_round_add_plain, (buckets_round, table_ipa, ids4, found4),
          bare_table(ek.bucket_round_add32),
@@ -586,9 +634,15 @@ def phase_kernels(device, n, seed, reps=5, r1cs_msm_n=4098):
          {"S": S_ipa, "table_rows": 2 * n + 2}),
     ]
     cases += form_cases(ctx, proj, gen, device, [
-        ("r1cs", combine_shapes(r1cs_msm_n, 2)),
-        ("msm", combine_shapes(n, 1, horner=True))])
-    cases.append(challenge_case(ctx, proj[:, :, :1], device))
+        ("r1cs", combine_shapes(r1cs_msm_n, 2, ctx=ctx)),
+        ("msm", combine_shapes(n, 1, horner=True, ctx=ctx))])
+    cases += chain_cases(ctx, min(n, ROOFLINE_BATCH), device)
+    if a0:
+        cases.append(challenge_case(ctx, proj[:, :, :1], device))
+    else:   # kernels 1 and 5 are built for a = 0, and Edwards curves run
+        # no `bp_ipa_challenge`
+        cases = [c for c in cases if c[0] not in (
+            "bucket_rounds_mixed", "bucket_round_add_mxu")]
 
     records = {}
     # kernel 3's form shapes checked so far (`form_key`): a later path's
@@ -618,7 +672,7 @@ def phase_kernels(device, n, seed, reps=5, r1cs_msm_n=4098):
                "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": None}
-        emit({"phase": "kernel", **rec, "shape": shape})
+        emit({"phase": "kernel", **rec, "shape": shape, "curve": cv.name})
         sub = {"shape": shape, "max_abs_err": err, "ms": ms,
                "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
                "bound_ms": bound_ms, "bound_by": bound_by}
@@ -633,7 +687,7 @@ def phase_kernels(device, n, seed, reps=5, r1cs_msm_n=4098):
         if "form" in case[-1]:
             forms_seen.add(form_key(case[-1]))
         check(*case)
-    if device.type == "cuda":
+    if device.type == "cuda" and a0:
         ch = records["ipa_challenge"]
         ch["split"] = challenge_split(
             ctx, next(c for c in cases if c[0] == "ipa_challenge")[3],
@@ -642,18 +696,19 @@ def phase_kernels(device, n, seed, reps=5, r1cs_msm_n=4098):
               **ch["split"]})
 
     # kernel 5 computes kernel 4's function: the same words
-    if not torch.equal(
+    if a0 and not torch.equal(
             ek.bucket_round_add_mxu(buckets_round, table_ipa, ids4, found4,
                                     ctx),
             ek.bucket_round_add(buckets_round, table_ipa, ids4, found4,
                                 ctx)):
         raise AssertionError("bucket_round_add_mxu differs from "
                              "bucket_round_add")
-    k5 = records["bucket_round_add_mxu"]
-    k5.update(mxu_bound(ctx, found4, rounds_work(found4, 3 * nl, 3,
-                                                 ids_read=True)[0]))
-    emit({"phase": "kernel5_bound", **{k: v for k, v in k5.items()
-                                        if k.startswith("mxu_")}})
+    if a0:
+        k5 = records["bucket_round_add_mxu"]
+        k5.update(mxu_bound(ctx, found4, rounds_work(found4, 3 * nl, 3,
+                                                     ids_read=True)[0]))
+        emit({"phase": "kernel5_bound", **{k: v for k, v in k5.items()
+                                            if k.startswith("mxu_")}})
 
     # independent spot check of the batched add against host ints
     picks = [0, 1, 2, 3, n_add - 1]
@@ -664,8 +719,8 @@ def phase_kernels(device, n, seed, reps=5, r1cs_msm_n=4098):
     for s, a, b in zip(sums, pp, qq):
         if s != a + b:
             raise AssertionError("ec_add disagrees with host ints")
-    emit({"phase": "kernels", "S": S, "S_ipa": S_ipa, "R_c": R_c,
-          "seconds": time.time() - t0})
+    emit({"phase": "kernels", "curve": cv.name, "S": S, "S_ipa": S_ipa,
+          "R_c": R_c, "seconds": time.time() - t0})
 
     def check_msms(path, msms):
         """The bucket kernel and kernel 3's sequential forms at the shapes
@@ -687,7 +742,8 @@ def phase_kernels(device, n, seed, reps=5, r1cs_msm_n=4098):
         for points, sets, c_k, rounds, pre, *more in msms:
             affine_msm, horner, dup = (*more,
                                        *(True, False, True)[len(more):])
-            sh = combine_shapes(points, sets, c_k, horner=horner, dup=dup)
+            sh = combine_shapes(points, sets, c_k, horner=horner, dup=dup,
+                                ctx=ctx)
             S_k = sh["W_rows"] << c_k
             R_k = msm_mod._chunk_rounds(rounds)
             rows = sh["W_rows"] * points if pre else points
@@ -695,7 +751,7 @@ def phase_kernels(device, n, seed, reps=5, r1cs_msm_n=4098):
             affine_k, proj_k = tables(rows)
             name, table_k, words, empty = (
                 ("bucket_rounds_proj", proj_k, 3 * nl, 3)
-                if pre or not affine_msm
+                if pre or not affine_msm or not a0
                 else ("bucket_rounds_mixed", affine_k, 2 * nl, 0))
             kernel = getattr(ek, name)
             check(name, kernel, getattr(ek, name + "_plain"),
@@ -720,10 +776,10 @@ def phase_kernels(device, n, seed, reps=5, r1cs_msm_n=4098):
                     for _ in range(2))
                 check("ec_add", ek.ec_add, packed_add_plain, (P32, Q32),
                       lambda args: lambda: ek.ec_add32(*args, ctx),
-                      (3 * pt_words * n_k * w32, n_k * 12 * imad),
+                      (3 * pt_words * n_k * w32, n_k * per_add * imad),
                       {"path": path, "n": n_k, "packed": True})
-        emit({"phase": "kernels_at", "path": path, "msms": msms,
-              "seconds": time.time() - t1})
+        emit({"phase": "kernels_at", "path": path, "curve": cv.name,
+              "msms": msms, "seconds": time.time() - t1})
 
     return records, check_msms
 
@@ -893,7 +949,7 @@ def form_cases(ctx, proj, gen, device, paths):
     imad = imad_per_mont_mul(ctx)
     nl = ctx.fp.L // 2
     pt_bytes = 3 * nl * 4
-    add = 12 * imad
+    add = mont_muls_per_add(ctx) * imad
     m = proj.shape[2]
 
     def points(count):
@@ -973,11 +1029,10 @@ def form_cases(ctx, proj, gen, device, paths):
 
 
 @functools.cache
-def _bench_input(n, seed, bits):
-    """The bench's MSM input: m = n_base(n) random points repeated to n,
-    scalars uniform mod r (or uniform bits), and the independent host value
-    sum_j base_j * (sum_{i = j mod m} s_i mod r)."""
-    cv = BLS381
+def _bench_input(n, seed, bits, cv):
+    """The bench's MSM input on curve cv: m = n_base(n) random points
+    repeated to n, scalars uniform mod r (or uniform bits), and the
+    independent host value sum_j base_j * (sum_{i = j mod m} s_i mod r)."""
     rnd = random.Random(seed)
     m = n_base(n)
     base = _random_points(rnd, m, cv)
@@ -995,8 +1050,8 @@ def _bench_input(n, seed, bits):
 def phase_msm(device, n, seed, bits, reps):
     t0 = time.time()
     name = "msm_bitvector" if bits else "msm_uniform"
-    ctx = CurveCtx(BLS381)
-    pts, vals, expected = _bench_input(n, seed, bits)
+    ctx = CurveCtx(curve())
+    pts, vals, expected = _bench_input(n, seed, bits, ctx.cv)
     P, affine = to_device_points_affine(pts, ctx, device)
     s = to_device_scalars(vals, ctx, device)[None]
     c = msm_mod.pick_window(n)
@@ -1022,7 +1077,8 @@ def phase_msm(device, n, seed, bits, reps):
     rounds, pre = msm_mod._escalation_memo[key]
     dev_first, dev_p50 = timed(lambda: from_device_points(
         msm_mod.msm_device(P, s[0], ctx, c, affine=affine), ctx)[0])
-    emit({"phase": name, "n": n, "c": c, "rounds": rounds,
+    emit({"phase": name, "curve": ctx.cv.name, "n": n, "c": c,
+          "rounds": rounds,
           "pre_reduce": pre, "first_seconds": first,
           "msm_seconds_p50": p50, "points_per_s": n / p50,
           "msm_device_first_seconds": dev_first,
@@ -1032,11 +1088,10 @@ def phase_msm(device, n, seed, bits, reps):
 
 
 @functools.cache
-def _ipa_bases(n, seed):
-    """The bench's config-3 bases and vectors (`bench.py` config3):
-    m = n_base(n) hash-derived G and H bases (repeated to n by the
-    callers), Q, and uniform a and b."""
-    cv = BLS381
+def _ipa_bases(n, seed, cv):
+    """The bench's config-3 bases and vectors (`bench.py` config3) on
+    curve cv: m = n_base(n) hash-derived G and H bases (repeated to n by
+    the callers), Q, and uniform a and b."""
     m = n_base(n)
     Gb = [G1.from_msg_hash(b"G%d" % i, cv) for i in range(m)]
     Hb = [G1.from_msg_hash(b"H%d" % i, cv) for i in range(m)]
@@ -1048,19 +1103,19 @@ def _ipa_bases(n, seed):
 
 
 @functools.cache
-def _ipa_input(n, seed):
+def _ipa_input(n, seed, cv):
     """`_ipa_bases` with unit factors and P = <a, G> + <b, H> + <a, b> Q
     from one host MSM over the 2m + 1 distinct points."""
-    Gb, Hb, Q, a, b = _ipa_bases(n, seed)
+    Gb, Hb, Q, a, b = _ipa_bases(n, seed, cv)
     m = len(Gb)
-    P = msm_host(Gb + Hb + [Q], _collapse(a, m) + _collapse(b, m)
+    P = msm_host(Gb + Hb + [Q], _collapse(a, m, cv) + _collapse(b, m, cv)
                  + [inner_product(a, b).v])
     return Gb, Hb, Q, a, b, P
 
 
-def _collapse(vals, m):
+def _collapse(vals, m, cv):
     """sum_{i = j mod m} vals_i mod r for j < m: the scalar of base j."""
-    r = BLS381.r
+    r = cv.r
     out = [0] * m
     for i, v in enumerate(vals):
         out[i % m] += v.v if hasattr(v, "v") else v
@@ -1072,12 +1127,13 @@ def _host_check(proof, n, Gb, Hb, Q, P, label):
     independent of the device verifier: replay the transcript, build s,
     and collapse the G and H terms onto their m bases, so the check is one
     host MSM over 2m + 2 lg n + 1 points."""
-    r = BLS381.r
+    cv = Q.cv
+    r = cv.r
     u_sq, u_inv_sq, s = verification_scalars(proof.L, proof.R, n,
                                              bt.ProofTranscript(label))
     a, b = proof.a.v, proof.b.v
-    g = _collapse([a * si.v for si in s], len(Gb))
-    h = _collapse([b * si.v for si in reversed(s)], len(Hb))
+    g = _collapse([a * si.v for si in s], len(Gb), cv)
+    h = _collapse([b * si.v for si in reversed(s)], len(Hb), cv)
     want = msm_host([Q] + Gb + Hb + list(proof.L) + list(proof.R),
                     [a * b % r] + g + h + [r - u.v for u in u_sq]
                     + [r - u.v for u in u_inv_sq])
@@ -1094,11 +1150,12 @@ def phase_ipa(device, n, seed, reps):
     """The standalone IPA at n through the port's entry points."""
     t0 = time.time()
     label = b"ipa_smoke"
-    Gb, Hb, Q, a, b, P = _ipa_input(n, seed)
+    cv = curve()
+    Gb, Hb, Q, a, b, P = _ipa_input(n, seed, cv)
     m = len(Gb)
     G = [Gb[i % m] for i in range(n)]
     H = [Hb[i % m] for i in range(n)]
-    ones = [Scalar.one(BLS381)] * n
+    ones = [Scalar.one(cv)] * n
     setup = time.time() - t0
 
     per_call = {}               # kernel launches of one call of each kind
@@ -1143,8 +1200,8 @@ def phase_ipa(device, n, seed, reps):
     host_check = time.time() - t1
     # what the point-table cache pays on every prove and verify call
     t1 = time.time()
-    content_digest(G, CurveCtx(BLS381))
-    content_digest(H, CurveCtx(BLS381))
+    content_digest(G, CurveCtx(cv))
+    content_digest(H, CurveCtx(cv))
     digest = time.time() - t1
 
     def verify(a_fin):
@@ -1158,7 +1215,7 @@ def phase_ipa(device, n, seed, reps):
     vtimes = [verify(proof.a) for _ in range(reps)]
     try:
         bt.verify_ipp(n, bt.ProofTranscript(label), ones, ones, P, Q, G, H,
-                      proof.a + Scalar.one(BLS381), proof.b, proof.L,
+                      proof.a + Scalar.one(cv), proof.b, proof.L,
                       proof.R, device=device)
     except VerificationError:
         pass
@@ -1169,7 +1226,7 @@ def phase_ipa(device, n, seed, reps):
     if _proof_bytes(round_proof) != want:
         raise AssertionError("ipa: the per-round kernel's proof differs")
     p50 = lambda ts, first: sorted(ts)[len(ts) // 2] if ts else first
-    emit({"phase": "ipa", "n": n, "bases": m,
+    emit({"phase": "ipa", "curve": cv.name, "n": n, "bases": m,
           "ipa_prove_first_seconds": prove_first,
           "ipa_prove_seconds_p50": p50(times, prove_first),
           "ipa_prove_stage_seconds": stages,
@@ -1203,7 +1260,7 @@ def phase_ipa_fused(device, n, seed, reps, records, r1cs=None):
     it after the paths, outside their counts."""
     t0 = time.time()
     label = b"ipa_smoke"
-    Gb, Hb, Q, a, b, _ = _ipa_input(n, seed)
+    Gb, Hb, Q, a, b, _ = _ipa_input(n, seed, BLS381)
     m = len(Gb)
     G = [Gb[i % m] for i in range(n)]
     H = [Hb[i % m] for i in range(n)]
@@ -1392,7 +1449,7 @@ def phase_r1cs(device, m, bits, reps, ref):
     the proof of that seed must have that digest."""
     t0 = time.time()
     n = m * 2 * bits
-    cv = BLS381
+    cv = curve()
     G = bt.get_generators("G", n)
     H = bt.get_generators("H", n)
     g, h = G1.from_msg_hash(b"g", cv), G1.from_msg_hash(b"h", cv)
@@ -1459,7 +1516,7 @@ def phase_r1cs(device, m, bits, reps, ref):
 
     warm = sorted(runs[sd][2] for sd in seeds[1:]) or [runs[1][2]]
     p50 = lambda ts: ts[len(ts) // 2]
-    emit({"phase": "r1cs", "m": m, "bits": bits, "n": n,
+    emit({"phase": "r1cs", "curve": cv.name, "m": m, "bits": bits, "n": n,
           "r1cs_prove_first_seconds": runs[1][2],
           "r1cs_prove_seconds_p50": p50(warm),
           "r1cs_prove_stage_seconds": stages,
@@ -1797,7 +1854,7 @@ def phase_batch(device, m, bits, k, ipa_n, ipa_k, seed, reps):
     ones = [Scalar.one(cv)] * ipa_n
     ipa_items, G_ipa, H_ipa = [], None, None
     for i in range(ipa_k):
-        Gb, Hb, Q, a, b, P = _ipa_input(ipa_n, seed + i)
+        Gb, Hb, Q, a, b, P = _ipa_input(ipa_n, seed + i, BLS381)
         if G_ipa is None:
             mb = len(Gb)
             G_ipa = [Gb[j % mb] for j in range(ipa_n)]
@@ -1959,6 +2016,76 @@ def gadget_case(pkg, name, spec, **kw):
                          verify(pf, comms, g, h, G, H, tampered))
 
 
+# The gadget statements of the JAX package's tests/test_ed25519.py:69-96 on
+# ed25519 (the reference's `ed25519` cargo feature): a range proof, a set
+# membership proof and a Poseidon preimage proof, each from its own seed;
+# the generators the JAX test gives them
+ED25519_GADGETS = {"bound_check": (b"ed", 81),
+                   "set_membership": (b"edset", 82),
+                   "poseidon_preimage": (b"edpos", 83)}
+ED25519_GADGET_N = 512
+
+
+def ed25519_gadget_case(pkg, name, poseidon_rounds=(4, 4, 55), **kw):
+    """One of `ED25519_GADGETS`' statements, built from the modules of the
+    package `pkg` (this port, or in the tests the JAX package) under its
+    active curve, ed25519: 42 in [0, 2^16] with 16 bits, 9 in
+    {5, 9, 1, 100}, and a preimage of Poseidon_hash_2 with width 3 and
+    `poseidon_rounds` (full rounds at the beginning and end, partial
+    rounds: the JAX test's 4, 4, 55 unless a CPU test asks for fewer) of
+    the cube s-box.  kw goes to the port's entry points (`device`).
+    -> (prove, verify) as `gadget_case` gives them; tampered: the first
+    commitment + g, the member replaced, the image + 1."""
+    mod = lambda m: functools.reduce(getattr, m.split("."), pkg.models)
+    S = pkg.Scalar
+    label, seed = ED25519_GADGETS[name]
+    rng = random.Random(seed)
+    plus = lambda comms, g: [comms[0] + g] + list(comms[1:])
+    if name == "bound_check":
+        m = mod("bound_check")
+        prove = lambda r, g, h, G, H: m.gen_proof_of_bounded_num(
+            42, None, 0, 1 << 16, 16, r, label, g, h, G, H, **kw)
+        verify = lambda pf, comms, g, h, G, H, t: \
+            m.verify_proof_of_bounded_num(
+                0, 1 << 16, 16, pf, plus(comms, g) if t else comms, label, g,
+                h, G, H, **kw)
+    elif name == "set_membership":
+        m = mod("set_membership")
+        sets = ([S(v) for v in (5, 9, 1, 100)],
+                [S(v) for v in (5, 1009, 1, 100)])
+        prove = lambda r, g, h, G, H: m.gen_proof_of_set_membership(
+            S(9), None, sets[0], r, label, g, h, G, H, **kw)
+        verify = lambda pf, comms, g, h, G, H, t: \
+            m.verify_proof_of_set_membership(sets[t], pf, comms, label, g, h,
+                                             G, H, **kw)
+    elif name == "poseidon_preimage":
+        m = mod("poseidon_hash")
+        pos = mod("helper_constraints.poseidon")
+        params = pos.PoseidonParams(3, *poseidon_rounds)
+        cube = pos.SboxType.Cube
+        xl, xr = S.random(rng), S.random(rng)
+        image = pos.Poseidon_hash_2(xl, xr, params, cube)
+        prove = lambda r, g, h, G, H: \
+            m.gen_proof_of_knowledge_of_preimage_of_Poseidon_2(
+                [xl, xr], None, image, params, cube, r, label, g, h, G, H,
+                **kw)
+        verify = lambda pf, comms, g, h, G, H, t: \
+            m.verify_proof_of_knowledge_of_preimage_of_Poseidon_2(
+                image + S(1) if t else image, params, cube, pf, comms, label,
+                g, h, G, H, **kw)
+    else:
+        raise ValueError(f"no ed25519 gadget {name!r}")
+    state = rng.getstate()
+
+    def prove_fresh(g, h, G, H):
+        r = random.Random()
+        r.setstate(state)
+        return prove(r, g, h, G, H)
+
+    return prove_fresh, (lambda pf, comms, g, h, G, H, tampered=False:
+                         verify(pf, comms, g, h, G, H, tampered))
+
+
 def phase_gadgets(device, ref):
     """One proof and one verification of each gadget of `ref["gadgets"]`
     (the shape of tests/vectors/torch_gadgets.json: each statement's
@@ -2064,7 +2191,7 @@ def phase_sharded(device, n, seed, reps, ref, r1cs=(16, 64), shards=4,
 
     # phase 3's input, uniform scalars
     c = msm_mod.pick_window(n)
-    pts, vals, expected = _bench_input(n, seed, bits=False)
+    pts, vals, expected = _bench_input(n, seed, False, BLS381)
     P, affine = to_device_points_affine(pts, ctx, device)
     s = to_device_scalars(vals, ctx, device)
     run = lambda: from_device_points(
@@ -2093,7 +2220,7 @@ def phase_sharded(device, n, seed, reps, ref, r1cs=(16, 64), shards=4,
                 "msm_sharded_2d_seconds": time.time() - t1})
 
     # phase 4's input, a bit vector: escalation to pre-reduction
-    pts_b, vals_b, expected_b = _bench_input(n, seed + 1, bits=True)
+    pts_b, vals_b, expected_b = _bench_input(n, seed + 1, True, BLS381)
     Pb, affine_b = to_device_points_affine(pts_b, ctx, device)
     sb = to_device_scalars(vals_b, ctx, device)[None]
     first, warm = timed("msm_multi_sharded (bits)", lambda: msm_multi_sharded(
@@ -2111,7 +2238,7 @@ def phase_sharded(device, n, seed, reps, ref, r1cs=(16, 64), shards=4,
     label = b"ipa_smoke"
     ipa_n = ipa_n or n
     parts["msm"] = time.time() - t0
-    Gb, Hb, Q, a, b = _ipa_bases(ipa_n, seed + 2)
+    Gb, Hb, Q, a, b = _ipa_bases(ipa_n, seed + 2, BLS381)
     m = len(Gb)
     G = [Gb[i % m] for i in range(ipa_n)]
     H = [Hb[i % m] for i in range(ipa_n)]
@@ -2209,6 +2336,151 @@ def phase_sharded(device, n, seed, reps, ref, r1cs=(16, 64), shards=4,
     return {"msms": msms, "launches": per_call}
 
 
+ED25519_REFERENCE = R1CS_REFERENCE.with_name("torch_ed25519.json")
+
+
+@contextlib.contextmanager
+def no_plain_add_on_card():
+    """While open, the plain complete add (`ops.ec.ec_add`, and the kernel
+    wrappers' handle on it) raises for a CUDA tensor: a path that hands
+    the card's group law to the plain version fails."""
+    plain = ec_mod.ec_add
+
+    def guarded(P, Q, ctx, **kw):
+        if P.device.type == "cuda":
+            raise AssertionError("the plain ec_add ran on a CUDA tensor")
+        return plain(P, Q, ctx, **kw)
+    ec_mod.ec_add = ek.ec_add_plain = guarded
+    try:
+        yield
+    finally:
+        ec_mod.ec_add = ek.ec_add_plain = plain
+
+
+def phase_ed25519(device, n, seed, reps, ref, r1cs=None, gadgets=True):
+    """ed25519 (a != 0: RCB16 algorithm 1 in kernels 2, 3 and 4) end to end
+    through the port's entry points on `device`, under
+    `using_curve(ED25519)` and `no_plain_add_on_card`: phases 3-5 on
+    ed25519 inputs (the n-point uniform and bit-vector MSMs against the
+    host sums, 1 + reps runs of `msm_hybrid` and of `msm_device`; the IPA
+    at n, per round: Edwards transcripts, 1 + reps proofs, the host check,
+    `verify_ipp`, a + 1 rejected, the per-round kernel's proof
+    identical), phase 6 on ref["config2"] (r1cs = (m, bits) overrides its
+    size, for a rehearsal: proofs of seeds 1..1 + reps, the reference
+    seed's sha256 the JAX package's, the host check, `Verifier.verify`,
+    t_x + 1 rejected), and with `gadgets` the three gadget proofs of
+    `ED25519_GADGETS` at n = 512, each sha256 against ref["gadgets"],
+    verified, the statement tampered rejected.  Returns the launches of
+    one IPA proof and verification, one config-2 proof and verification,
+    each gadget's, and the shapes of the MSMs the phase ran
+    (`msm_shapes`, `device_msm_shapes`) for `kernels_at`."""
+    t0 = time.time()
+    earlier = clear_msm_memos()
+    c2 = dict(ref["config2"])
+    if r1cs is not None:
+        c2["m"], c2["bits"] = r1cs
+    with using_curve(ED25519), no_plain_add_on_card():
+        phase_msm(device, n, seed, bits=False, reps=reps)
+        phase_msm(device, n, seed + 1, bits=True, reps=reps)
+        ipa = phase_ipa(device, n, seed + 2, reps)
+        ipa.pop("proof")
+        per_call = {"ipa": ipa,
+                    "r1cs": phase_r1cs(device, c2["m"], c2["bits"], reps,
+                                       c2)}
+        rows = {}
+        if gadgets:
+            g, h = G1.from_msg_hash(b"g"), G1.from_msg_hash(b"h")
+            G = bt.get_generators("G", ED25519_GADGET_N)
+            H = bt.get_generators("H", ED25519_GADGET_N)
+            for name, spec in ref["gadgets"].items():
+                prove, verify = ed25519_gadget_case(bt, name, device=device)
+                before = launch_counts()
+                t1 = time.time()
+                proof, comms = prove(g, h, G, H)
+                prove_s = time.time() - t1
+                mid = launch_counts()
+                verify(proof, comms, g, h, G, H)
+                verify_s = time.time() - t1 - prove_s
+                per_call[name] = {
+                    "prove": {k: v - before[k] for k, v in mid.items()
+                              if v > before[k]},
+                    "verify": {k: v - mid[k] for k, v in
+                               launch_counts().items() if v > mid[k]}}
+                digest = hashlib.sha256(proof.to_bytes()).hexdigest()
+                if digest != spec["sha256"]:
+                    raise AssertionError(
+                        f"ed25519: the {name} proof has sha256 {digest}, "
+                        f"the JAX package's {spec['sha256']}")
+                try:
+                    verify(proof, comms, g, h, G, H, tampered=True)
+                except VerificationError:
+                    pass
+                else:
+                    raise AssertionError(f"ed25519: {name} verified a "
+                                         "tampered statement")
+                rows[name] = {"n": 1 << len(proof.ipp_proof.L),
+                              "prove_seconds": prove_s,
+                              "verify_seconds": verify_s,
+                              "proof_sha256": digest,
+                              "tampered_rejected": True}
+    msms = msm_shapes() + device_msm_shapes("ed25519")
+    restore_msm_memos(earlier)
+    emit({"phase": "ed25519", "gadgets": rows, "matches_reference": True,
+          "no_plain_add_on_card": True, "launches_per_call": per_call,
+          "seconds": time.time() - t0})
+    return {"launches": per_call, "msms": msms}
+
+
+ROOFLINE_CURVES = (BLS381, ED25519)
+# the roofline report's size: the JAX bench's (`bench.py:711-720`)
+ROOFLINE_BATCH, ROOFLINE_ITERS = 8192, 100
+
+
+def chain_cases(ctx, batch, device):
+    """Phase 2's cases of the roofline harness's chain kernel: its two
+    forms, `ROOFLINE_ITERS` dependent adds or products over `batch`
+    distinct canonical inputs (the report's size on the card).  Bound: the
+    IMADs of the function's products (12 or 18 an add) and its inputs and
+    outputs once.  Each shape names the build it runs: the product has no
+    curve constant, so an a != 0 curve's runs the a = 0 build of its
+    width, and its launches count as that build's."""
+    cases = []
+    for op, make, per_step in (
+            ("ec_add", roofline.chain_points, roofline.imad_per_ec_add(ctx)),
+            ("mont_mul", roofline.chain_elements,
+             imad_per_mont_mul(ctx))):
+        x = make(ctx, batch, device=device)
+
+        def bare(args, op=op):
+            out = torch.empty_like(args[0])
+            launch = getattr(roofline, f"{op}_chain32")
+            return lambda: launch(out, *args, ctx)
+        cases.append(("chain", getattr(roofline, f"{op}_chain"),
+                      getattr(roofline, f"{op}_chain_plain"),
+                      (x, ROOFLINE_ITERS), bare,
+                      (2 * x.numel() * 4, batch * ROOFLINE_ITERS * per_step),
+                      {"op": op, "batch": batch, "iters": ROOFLINE_ITERS,
+                       "build": "a!=0" if op == "ec_add"
+                       and not ctx.a_is_zero else "a=0"}))
+    return cases
+
+
+def phase_roofline(smi=None):
+    """The H100 roofline (`utils/roofline.py: roofline_report`) on each
+    curve of `ROOFLINE_CURVES` at the report's size, with the card's name
+    and power limit (`smi`): measured and speed-of-light rates of the
+    complete add and the product, and their utilisation.  The chain kernel
+    it times is held bit-exact against its plain version at this size in
+    phase 2 (`chain_cases`)."""
+    t0 = time.time()
+    for cv in ROOFLINE_CURVES:
+        report = roofline.roofline_report(CurveCtx(cv), ROOFLINE_BATCH,
+                                          ROOFLINE_ITERS, "cuda")
+        emit({"phase": "roofline", "curve": cv.name, "nvidia_smi": smi,
+              **report})
+    emit({"phase": "roofline_done", "seconds": time.time() - t0})
+
+
 def msm_shapes():
     """The MSM shapes in `msm._escalation_memo`, with the rounds and
     pre-reduction passes that `msm_hybrid` settled on for each, then the
@@ -2243,12 +2515,14 @@ def restore_msm_memos(earlier):
             memo.setdefault(key, v)
 
 
-def device_msm_shapes():
-    """The MSM shapes in `msm._device_memo`, with the rounds and
-    pre-reduction passes that `msm_device` settled on for each and the
-    Horner on the device: [(points, 1, c, rounds, pre, affine, True)]."""
+def device_msm_shapes(curve_name=None):
+    """The MSM shapes in `msm._device_memo` (of one curve, where named),
+    with the rounds and pre-reduction passes that `msm_device` settled on
+    for each and the Horner on the device: [(points, 1, c, rounds, pre,
+    affine, True)]."""
     return [(k[0], 1, k[1], *v, k[3], True) for k, v in
-            msm_mod._device_memo.items()]
+            msm_mod._device_memo.items()
+            if curve_name in (None, k[2])]
 
 
 def _ipa_round_schedule(n, seed, device):
@@ -2258,7 +2532,7 @@ def _ipa_round_schedule(n, seed, device):
     found (R, S) int32)."""
     ctx = CurveCtx(BLS381)
     fr = ctx.fr
-    Gb, Hb, Q, a, b = _ipa_bases(n, seed)
+    Gb, Hb, Q, a, b = _ipa_bases(n, seed, BLS381)
     k = len(Gb)
     pts = [Gb[i % k] for i in range(n)] + [Hb[i % k] for i in range(n)]
     table, _ = to_device_points_affine(pts + [Q], ctx, device)
@@ -2329,9 +2603,19 @@ def phase_mxu_race(device, n, seed):
 
 def launch_counts():
     """Kernel launches so far: per kernel, and kernel 3's also per form
-    (`ec_add:<form>`, `ek.form_launches`)."""
-    return {**ek.launches,
-            **{f"ec_add:{k}": v for k, v in ek.form_launches.items()}}
+    (`ec_add:<form>`, `ek.form_launches`), each by build: `<key>` counts
+    the launches of the a = 0 build, and for a kernel with an a != 0
+    build (algorithm 1), `<key>:a!=0` those of that build
+    (`ek.a_nonzero_launches`)."""
+    total = {**ek.launches,
+             **{f"ec_add:{k}": v for k, v in ek.form_launches.items()}}
+    out = {}
+    for key, n in total.items():
+        general = ek.a_nonzero_launches.get(key)
+        out[key] = n - (general or 0)
+        if general is not None:
+            out[f"{key}:a!=0"] = general
+    return out
 
 
 def _run_path(name, drive, per_call=None):
@@ -2349,19 +2633,25 @@ def _run_path(name, drive, per_call=None):
         if counts[kernel] <= 0:
             raise AssertionError(f"{kernel} never launched on the {name} "
                                  "path")
+    for kernel in NOT_ON_PATH.get(name, ()):
+        if counts[kernel]:
+            raise AssertionError(f"{kernel} launched on the {name} path")
     return counts
 
 
-def add_launches(records, by_path):
-    """Each record's launches over the paths' runs, in total and by path;
-    kernel 3's sequential forms' sub-records by their kernel form."""
+def add_launches(records, by_path, build=""):
+    """Each record's launches over the paths' runs, in total and by path
+    (the paths that launched it); kernel 3's sequential forms' sub-records
+    by their kernel form.  build: "" for the records of the a = 0 builds,
+    ":a!=0" for those of the a != 0 builds (`launch_counts`)."""
+    def put(rec, key):
+        rec["launches"] = sum(c[key] for c in by_path.values())
+        rec["launches_by_path"] = {p: c[key] for p, c in by_path.items()
+                                   if c[key]}
     for name, rec in records.items():
-        rec["launches"] = sum(c[name] for c in by_path.values())
-        rec["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
+        put(rec, name + build)
     for sub in records["ec_add"].get("forms", []):
-        key = "ec_add:" + FORM_KERNEL[sub["shape"]["form"]]
-        sub["launches"] = sum(c[key] for c in by_path.values())
-        sub["launches_by_path"] = {p: c[key] for p, c in by_path.items()}
+        put(sub, "ec_add:" + FORM_KERNEL[sub["shape"]["form"]] + build)
 
 
 def trace_ipa(n, seed, reps):
@@ -2372,7 +2662,7 @@ def trace_ipa(n, seed, reps):
     traced proofs of each in turns, one line a proof: traced wall ms,
     device busy ms, idle share, the costliest kernels and
     `bp_ipa_challenge`'s device ms."""
-    Gb, Hb, Q, a, b, _ = _ipa_input(n, seed)
+    Gb, Hb, Q, a, b, _ = _ipa_input(n, seed, BLS381)
     m = len(Gb)
     G = [Gb[i % m] for i in range(n)]
     H = [Hb[i % m] for i in range(n)]
@@ -2448,6 +2738,15 @@ def main():
                 "cuda", args.n, args.seed, 3, ref, (ref["m"], ref["bits"]),
                 ipa_proof=per_call["ipa"].pop("proof")), per_call),
         }
+        ed_ref = json.loads(ED25519_REFERENCE.read_text())
+        by_path["ed25519"] = _run_path("ed25519", lambda: phase_ed25519(
+            "cuda", args.n, args.seed, 3, ed_ref), per_call)
+        by_path["roofline"] = _run_path("roofline",
+                                        lambda: phase_roofline(smi))
+        with using_curve(ED25519):        # outside the paths' counts
+            ed_records, ed_check = phase_kernels("cuda", args.n, args.seed,
+                                                 cv=ED25519)
+            ed_check("ed25519", per_call["ed25519"]["msms"])
         check_msms("sharded", per_call["sharded"]["msms"])
         for path in ("smt", "batch", "gadgets"):
             res = per_call[path]
@@ -2456,6 +2755,16 @@ def main():
         per_call["ipa_fused"].pop("check")()  # outside the paths' counts
         fused_calls = per_call["ipa_fused"]["launches"]
         add_launches(records, by_path)
+        add_launches(ed_records, by_path, ":a!=0")
+        for name, rec in ed_records.items():
+            rec["ptxas"] = [e for entries in ptxas.values() for e in entries
+                            if e["kernel"].endswith("a!=0>")
+                            and e["kernel"].split("<")[0]
+                            in KERNEL_FUNCTIONS[name]]
+            records[name]["a_nonzero"] = rec
+        records["chain"]["ptxas"] = [
+            e for entries in ptxas.values() for e in entries
+            if e["kernel"].split("<")[0] in KERNEL_FUNCTIONS["chain"]]
         emit({"phase": "launches", "launches": by_path,
               "per_r1cs_proof": per_call["r1cs"]["prove"],
               "per_r1cs_verify": per_call["r1cs"]["verify"],
@@ -2469,6 +2778,7 @@ def main():
               "per_gadget": per_call["gadgets"],
               "per_sharded_r1cs_proof": per_call["sharded"]["launches"][
                   "prove"],
+              "per_ed25519_call": per_call["ed25519"]["launches"],
               "seconds": time.time() - t_start})
     print(smi, flush=True)
     emit({"kernels": [records[k] for k in REPLACES]})

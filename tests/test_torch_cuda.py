@@ -3,7 +3,9 @@ Merkle trees on the card: each kernel against its plain PyTorch version,
 word for word (kernel 5 also against kernel 4), the MSM against exact-int
 host sums, IPA, range and SMT-4 proofs against the port's own CPU runs,
 byte for byte, the fused IPA against the per-round one, and the batched
-Poseidon against its CPU run.  Every test is
+Poseidon against its CPU run; the roofline harness's chain kernel against
+its plain version; ed25519 (a != 0: RCB16 algorithm 1 in kernels 2-4)
+through the proofs with no plain add on the card.  Every test is
 marked `cuda` and skips without a card.
 
 This file imports neither jax nor the JAX package, so on a machine without
@@ -18,7 +20,7 @@ import pytest
 import torch
 
 import bulletproofs_tpu_torch as bt
-from bulletproofs_tpu_torch.config import BLS381, BN254
+from bulletproofs_tpu_torch.config import BLS381, BN254, ED25519, SECP256K1
 from bulletproofs_tpu_torch.ops import ec as E
 from bulletproofs_tpu_torch.ops import field as F
 from bulletproofs_tpu_torch.ops import ec_kernels as ek
@@ -29,7 +31,28 @@ from bulletproofs_tpu_torch.ops.field import pack32, unpack32
 from bulletproofs_tpu_torch.ops.transcript_device import DeviceTranscript
 from bulletproofs_tpu_torch.ops.field_host import inner_product
 
-CURVES = {"bls381": BLS381, "bn254": BN254}
+# The earlier slices' curves, still those of the Poseidon tests, and every
+# curve of config.py: ed25519 is the one with a != 0 (RCB16 algorithm 1,
+# built into kernels 2, 3 and 4 for its 8 words) and the one that
+# serializes Edwards coordinates.  Kernel 1 (the mixed add, algorithm 8)
+# and kernel 5 are built for a = 0 only, and the MSM never gives them an
+# a != 0 curve; the fused IPA and `bp_ipa_challenge` serialize Weierstrass
+# points, and Edwards curves prove per round: their tests take A0_CURVES.
+BASE_CURVES = {"bls381": BLS381, "bn254": BN254}
+CURVES = {**BASE_CURVES, "secp256k1": SECP256K1, "ed25519": ED25519}
+A0_CURVES = {k: cv for k, cv in CURVES.items() if cv.a == 0}
+
+
+def _a_nonzero(cv, n):
+    """Of n launches on curve cv, those the a != 0 builds count
+    (`ek.a_nonzero_launches`): all of them for a != 0, none for a = 0."""
+    return 0 if cv.a == 0 else n
+
+
+def _bucket_kernel(cv):
+    """The bucket kernel of an MSM over an affine table: kernel 1 for
+    a = 0, kernel 2 for a != 0 (`msm.uses_mixed`)."""
+    return "bucket_rounds_mixed" if cv.a == 0 else "bucket_rounds_proj"
 
 
 @pytest.fixture
@@ -78,8 +101,9 @@ _BUCKET_KERNELS = {
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("curve", sorted(CURVES))
-@pytest.mark.parametrize("kernel", ["mixed", "proj", "ec_add"])
+@pytest.mark.parametrize("kernel,curve", [
+    (k, c) for k in ["mixed", "proj", "ec_add"]
+    for c in sorted(A0_CURVES if k == "mixed" else CURVES)])
 def test_kernel_matches_plain_on_card(kernel, curve, cuda_device):
     S, R_c = 1000, 5                      # S not a multiple of the block
     width = 2 if kernel == "mixed" else 3
@@ -97,6 +121,9 @@ def test_kernel_matches_plain_on_card(kernel, curve, cuda_device):
         assert torch.equal(unpack32(bare, 1), want)
         assert torch.equal(unpack32(packed, 1), want)  # packed operands
         assert ek.launches["ec_add"] == 3
+        assert ek.a_nonzero_launches["ec_add"] == \
+            ek.a_nonzero_launches["ec_add:pairwise"] == \
+            _a_nonzero(CURVES[curve], 3)
         return
     # kernels 1 and 2 gather their rows from the packed table by point id
     key, wrapper, plain, launch = _BUCKET_KERNELS[kernel]
@@ -111,11 +138,31 @@ def test_kernel_matches_plain_on_card(kernel, curve, cuda_device):
     assert torch.equal(out, want)
     assert torch.equal(acc32, want)
     assert ek.launches[key] == 3
+    assert ek.a_nonzero_launches.get(key, 0) == _a_nonzero(CURVES[curve], 3)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("curve", sorted(CURVES))
-@pytest.mark.parametrize("kernel", ["proj", "round", "mxu"])
+@pytest.mark.parametrize("kernel", ["mixed", "mxu"])
+def test_a0_kernels_refuse_a_nonzero_on_card(kernel, cuda_device):
+    """Kernels 1 and 5 are built for a = 0 only (RCB16 algorithms 8 and 7):
+    their launchers refuse ed25519 (a != 0), and the wrappers raise
+    NotImplementedError, with no launch counted."""
+    width = 2 if kernel == "mixed" else 3
+    ctx, acc, found, _, table32, ids = _round_inputs(
+        ED25519, 9, 64, 2, width, cuda_device)
+    if kernel == "mxu":
+        ids, found = ids[0], found[0]
+    _, wrapper, _, _ = _BUCKET_KERNELS[kernel]
+    ek.reset_launches()
+    with pytest.raises(NotImplementedError, match="a != 0"):
+        wrapper(pack32(acc, 1), table32, ids, found, ctx)
+    assert ek.launches == {k: 0 for k in ek.launches}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,curve", [
+    (k, c) for k in ["proj", "round", "mxu"]
+    for c in sorted(A0_CURVES if k == "mxu" else CURVES)])
 def test_table_kernel_edge_slots_on_card(kernel, curve, cuda_device):
     """Kernels 2, 4 and 5 from a packed table of 4098 rows, S = 1000 slots
     (125 warps of 8 groups, the last block partly past S): a warp whose
@@ -204,7 +251,7 @@ def test_sequential_form_matches_plain_on_card(form, curve, cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("curve", sorted(CURVES))
+@pytest.mark.parametrize("curve", sorted(A0_CURVES))
 def test_bucket_rounds_mixed_table_on_card(curve, cuda_device):
     """Kernel 1 at the IPA MSM's S = 16896 slots, R_c = 16 rounds, from a
     packed table of 4098 rows (16 points repeated) by a random slot grid:
@@ -243,11 +290,13 @@ def test_ec_add_kernel_batch_shapes_on_card(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("curve", sorted(CURVES))
 @pytest.mark.parametrize("bits", [False, True], ids=["uniform", "bits"])
-def test_msm_hybrid_on_card_matches_host(bits, cuda_device):
+def test_msm_hybrid_on_card_matches_host(bits, curve, cuda_device):
     """n = 4096 (c = 8, the production window): uniform scalars with 0, 1,
-    r-1, and a bit vector, which escalates to pre-reduction."""
-    cv = BLS381
+    r-1, and a bit vector, which escalates to pre-reduction; on ed25519
+    every bucket pass runs kernel 2."""
+    cv = CURVES[curve]
     ctx = E.CurveCtx(cv)
     n = 4096
     rnd = random.Random(31 + bits)
@@ -266,10 +315,14 @@ def test_msm_hybrid_on_card_matches_host(bits, cuda_device):
     ek.reset_launches()
     (got,) = M.msm_hybrid(P, s, ctx, affine=affine)
     assert got.to_bytes() == want.to_bytes()
-    key = "bucket_rounds_proj" if bits else "bucket_rounds_mixed"
+    key = "bucket_rounds_proj" if bits else _bucket_kernel(cv)
     assert ek.launches[key] > 0 and ek.launches["ec_add"] > 0
-    # the combine: the two folds, the row and column sums, the totals
-    assert ek.form_launches["gather_sum"] == 3
+    # the combine: the two folds where the curve's window plan has them
+    # (secp256k1's top window spans all 256 buckets: neither), the row and
+    # column sums, the totals
+    _, splits, dup = M.window_plan(ctx, 8, dup=True)
+    assert ek.form_launches["gather_sum"] == \
+        1 + int(splits.max() > 1) + bool(dup)
     assert ek.form_launches["window_totals"] == 1
 
 
@@ -299,10 +352,12 @@ def test_bucket_round_add_matches_plain_on_card(curve, cuda_device):
     ek.bucket_round_add32(acc32, acc32, table32, ids, found, ctx)
     assert torch.equal(acc32, want)
     assert ek.launches["bucket_round_add"] == 2
+    assert ek.a_nonzero_launches["bucket_round_add"] == \
+        _a_nonzero(CURVES[curve], 2)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("curve", sorted(CURVES))
+@pytest.mark.parametrize("curve", sorted(A0_CURVES))
 def test_bucket_round_add_mxu_matches_plain_and_kernel4_on_card(
         curve, cuda_device):
     """Kernel 5 at S = 16896 on kernel 4's operands (a packed table of 4098
@@ -357,7 +412,7 @@ def test_ipa_on_card_matches_cpu(ec_kernel, curve, cuda_device):
                            [p.to_bytes() for p in proof.R], proof.a.v,
                            proof.b.v, tr.challenge_scalar(b"post").v)
         key = "bucket_round_add" if ec_kernel == "round" \
-            else "bucket_rounds_mixed"
+            else _bucket_kernel(cv)
         assert ek.launches[key] > 0
         assert proofs["cuda"] == proofs["cpu"]
         P = bt.msm_host(G + H + [Q],
@@ -427,7 +482,7 @@ def _challenge_cases(cv, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("curve", sorted(CURVES))
+@pytest.mark.parametrize("curve", sorted(A0_CURVES))
 def test_ipa_challenge_matches_plain_on_card(curve, cuda_device):
     """`bp_ipa_challenge` bit-exact against its plain version on the same
     card tensors and on the CPU: the point bytes (the identity's (0, 1)
@@ -449,7 +504,7 @@ def test_ipa_challenge_matches_plain_on_card(curve, cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("curve", sorted(CURVES))
+@pytest.mark.parametrize("curve", sorted(A0_CURVES))
 def test_ipa_challenge_random_rounds_match_host(curve, cuda_device):
     """256 rounds at random registers, states and points (random
     projective Z; now and then L, R or both the identity): the kernel's
@@ -498,7 +553,7 @@ def test_ipa_challenge_random_rounds_match_host(curve, cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("curve", sorted(CURVES))
+@pytest.mark.parametrize("curve", sorted(A0_CURVES))
 def test_fused_ipa_on_card_matches_per_round(curve, cuda_device):
     """At n = 2^10 the fused IPA, the default on the card, gives the
     per-round path's proof bytes and transcript continuation, launches
@@ -582,7 +637,7 @@ def test_r1cs_on_card_matches_cpu(curve, cuda_device):
         ek.reset_launches()
         proof, comms = prove("cuda")
         assert ek.launches["ec_add"] > 0
-        assert ek.launches["bucket_rounds_mixed"] > 0
+        assert ek.launches[_bucket_kernel(cv)] > 0
         want, _ = prove("cpu")
         assert proof.to_bytes() == want.to_bytes()
         verify(proof, comms)
@@ -593,7 +648,7 @@ def test_r1cs_on_card_matches_cpu(curve, cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("curve", sorted(CURVES))
+@pytest.mark.parametrize("curve", sorted(BASE_CURVES))
 @pytest.mark.parametrize("sbox", ["cube", "quint", "inverse"])
 def test_poseidon_permutation_on_card_matches_cpu(sbox, curve,
                                                    cuda_device):
@@ -736,7 +791,7 @@ def test_batch_verify_on_card(curve, cuda_device):
 
         ek.reset_launches()
         run(proofs)
-        assert ek.launches["bucket_rounds_mixed"] > 0
+        assert ek.launches[_bucket_kernel(cv)] > 0
         assert ek.form_launches["horner"] > 0
         bad = list(proofs)
         bad[2] = bt.R1CSProof.from_bytes(proofs[2].to_bytes())
@@ -828,7 +883,7 @@ def test_msm_sharded_on_virtual_card_mesh(curve, cuda_device):
         got = fn(P, s, ctx, M.pick_window(1022), mesh, affine=affine)
         assert got.device.type == "cuda"
         assert E.from_device_points(got, ctx)[0] == want
-    assert ek.launches["bucket_rounds_mixed"] > 0
+    assert ek.launches[_bucket_kernel(cv)] > 0
     assert ek.form_launches["pairwise"] > 0
     _, bits = _sharded_msm_input(cv, 1022, 91, bits=True)
     sets = torch.stack([E.to_device_scalars(k, ctx, cuda_device)
@@ -841,7 +896,7 @@ def test_msm_sharded_on_virtual_card_mesh(curve, cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("curve", sorted(CURVES))
+@pytest.mark.parametrize("curve", sorted(BASE_CURVES))
 def test_ipa_sharded_on_virtual_card_mesh(curve, cuda_device):
     """An n = 2^10 IPA on 4 shards of one card has the bytes of the
     single-device proof (fused, the card's default)."""
@@ -881,3 +936,71 @@ def test_msm_sharded_over_every_card(cuda_device):
     assert E.from_device_points(got, ctx)[0] == bt.msm_host(pts, ks)
     assert {d.index for d in mesh.flat} == \
         set(range(torch.cuda.device_count()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("curve", sorted(CURVES))
+@pytest.mark.parametrize("op", ["ec_add", "mont_mul"])
+def test_chain_kernel_matches_plain_on_card(op, curve, cuda_device):
+    """The roofline harness's chain kernel over 1000 inputs (the last
+    block partly past them), 5 dependent steps: bit-exact against its
+    plain version on the same card tensors and on the CPU, one launch a
+    call; `roofline_report` gives positive rates and utilisations."""
+    from bulletproofs_tpu_torch.utils import roofline as R
+    ctx = E.CurveCtx(CURVES[curve])
+    make = R.chain_points if op == "ec_add" else R.chain_elements
+    x = make(ctx, 1000, seed=8, device=cuda_device)
+    wrapper = getattr(R, f"{op}_chain")
+    ek.reset_launches()
+    got = wrapper(x, 5, ctx)
+    torch.cuda.synchronize()
+    assert ek.launches["chain"] == 1
+    # the product has no curve constant: ed25519's runs the a = 0 build
+    assert ek.a_nonzero_launches["chain"] == _a_nonzero(
+        CURVES[curve], op == "ec_add")
+    assert torch.equal(got, getattr(R, f"{op}_chain_plain")(x, 5, ctx))
+    assert torch.equal(got.cpu(), wrapper(x.cpu(), 5, ctx))
+    rep = R.roofline_report(ctx, batch=1024, iters=4, device=cuda_device)
+    assert rep["limbs"] == ctx.fp.L and rep["batch"] == 1024
+    for key in ("ec_add", "mont_mul"):
+        assert 0 < rep[f"{key}_per_s"] < rep[f"{key}_speed_of_light_per_s"]
+        assert 0 < rep[f"{key}_utilization"] < 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["bound_check", "set_membership",
+                                  "poseidon_preimage"])
+def test_ed25519_gadget_proof_on_card(name, cuda_device):
+    """The gadget proofs of the JAX package's tests/test_ed25519.py on
+    ed25519 (a != 0) through the card: kernel 2 for every bucket pass
+    (never kernel 1), kernel 3's forms for the combine (RCB16 algorithm 1
+    throughout), no `bp_ipa_challenge` (Edwards transcripts run per
+    round), and no plain add on a CUDA tensor; each proof has the JAX
+    package's sha256 (tests/vectors/torch_ed25519.json), the card's
+    verifier accepts it and rejects the statement tampered."""
+    import hashlib
+    import json
+    from pathlib import Path
+    import chip_smoke
+    from bulletproofs_tpu_torch.utils.errors import VerificationError
+    ref = json.loads((Path(__file__).resolve().parent / "vectors"
+                      / "torch_ed25519.json").read_text())["gadgets"][name]
+    with bt.using_curve(ED25519), chip_smoke.no_plain_add_on_card():
+        n = chip_smoke.ED25519_GADGET_N
+        G, H = bt.get_generators("G", n), bt.get_generators("H", n)
+        g, h = bt.G1.from_msg_hash(b"g"), bt.G1.from_msg_hash(b"h")
+        prove, verify = chip_smoke.ed25519_gadget_case(bt, name,
+                                                       device="cuda")
+        ek.reset_launches()
+        proof, comms = prove(g, h, G, H)
+        # every launch of kernels 2-4 is of their a != 0 build
+        for key in ("bucket_rounds_proj", "bucket_round_add", "ec_add"):
+            assert ek.a_nonzero_launches[key] == ek.launches[key]
+        assert ek.a_nonzero_launches["bucket_rounds_proj"] > 0
+        assert ek.a_nonzero_launches["ec_add:gather_sum"] > 0
+        assert ek.launches["bucket_rounds_mixed"] == 0
+        assert ek.launches["ipa_challenge"] == 0
+        assert hashlib.sha256(proof.to_bytes()).hexdigest() == ref["sha256"]
+        verify(proof, comms, g, h, G, H)
+        with pytest.raises(VerificationError):
+            verify(proof, comms, g, h, G, H, tampered=True)

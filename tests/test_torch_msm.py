@@ -315,7 +315,9 @@ def test_port_imports_no_jax():
             "bulletproofs_tpu_torch.models.hamming_distance",
             "bulletproofs_tpu_torch.parallel",
             "bulletproofs_tpu_torch.parallel.sharded_msm",
-            "bulletproofs_tpu_torch.parallel.sharded_prover"} \
+            "bulletproofs_tpu_torch.parallel.sharded_prover",
+            "bulletproofs_tpu_torch.utils.metrics",
+            "bulletproofs_tpu_torch.utils.roofline"} \
         <= set(res["mods"])
     assert res["bad"] == []
 
