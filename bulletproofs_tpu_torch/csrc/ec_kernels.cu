@@ -15,9 +15,14 @@
 // package runs as `fori_loop`s over `ec_add` (bulletproofs_tpu/ops/msm.py
 // `_axis_sum`, `_running_weighted_sum`, `window_totals`,
 // `combine_from_rowcol`, `fold_split_buckets`, `_fold_dup_rows`):
-//   bp_ec_gather_sum        the axis sums and the two folds
-//   bp_ec_window_totals     the weighted running sums, doublings and add
-//   bp_ec_horner            the window Horner over the sets
+//   bp_ec_gather_sum        the axis sums and the two folds, a group of 4
+//                           lanes an output
+//   bp_ec_window_totals     the weighted running sums, doublings and add,
+//                           a warp a chain, 4 chains a window at once
+//   bp_ec_horner            the window Horner over the sets, a warp a set
+// The last two double by RCB16's dedicated doubling where the JAX package
+// adds a point to itself (`ec_double` = `ec_add(P, P)`): on the curve the
+// same triple, word for word (ec_lanes.cuh `ec_dbl_l`).
 //
 // Representation.  A field element is NL little-endian 32-bit limbs in
 // Montgomery form with R = 2^(32*NL).  The JAX package and the port's plain
@@ -48,7 +53,7 @@
 // latency of each thread's chain of dependent instructions limits it, not
 // the IMAD pipe.
 //
-// The bucket kernels and the sequential forms therefore give each slot or
+// The bucket kernels and the gather-sum form therefore give each slot or
 // output a group of kLanes = 4 threads that share its field products
 // (ec_lanes.cuh): 8448 slots make 8 warps an SM, each lane holds 3 words of
 // a BLS12-381 element instead of 12 (68 registers against 188-218 for
@@ -65,9 +70,18 @@
 // n = 2^16 affine, 18.9 MB for the IPA's 131074 projective rows); a
 // pre-reduced one (W*n rows, 311 MB at n = 2^16) does not.  The sequential
 // forms move the combine's Python loops of batched adds into one launch
-// each: one group owns one output and runs its chain of adds in
-// registers, in the Python loop's order, so the words match.  They run a
-// few dozen to a few thousand groups: latency-bound by design.
+// each, in the Python loop's order, so the words match.
+// The window totals and the Horner are lone chains: a few dozen windows,
+// one or two sets, each a chain of dependent adds and doublings (65 and
+// 288 at c = 8), on almost no threads, so their time is the latency of
+// each operation.  They run one chain a warp (ec_lanes.cuh `WarpLevels`):
+// the independent products of one group operation run at once, each on a
+// group of 4 lanes (the CIOS product the other kernels run), so an add
+// takes the latency of 2 products (3 for a != 0), not 12 (18); doublings
+// take RCB16's dedicated doubling (`ec_dbl_l`: algorithm 9, 8 products in
+// 2 levels; algorithm 3 for a != 0), and the window totals run their 4
+// chains (rows' and columns' running sums and totals) on 4 warps at once.
+// The gather-sum form keeps one group an output: it has thousands.
 
 #include "ec_common.cuh"
 #include "ec_lanes.cuh"
@@ -90,7 +104,7 @@ constexpr Fields kBuilt = Fields::kGeneralA;
 constexpr Fields kBuilt = Fields::kA0;
 #endif
 
-constexpr int kSumBlock = 64;               // of the sequential forms
+constexpr int kSumBlock = 64;               // of the gather-sum form
 
 // out, acc (3, NL, S); table (n, 2NL) affine rows; ids, found (R_c, S),
 // round-major.  A group of kLanes lanes per slot loops over the R_c rounds
@@ -232,79 +246,141 @@ ec_gather_sum_kernel(uint32_t* out, const uint32_t* P, const int32_t* idx,
     if (mine) store_point_l<NL>(out, n_out, o, X, Y, Z, ln.j);
 }
 
+// The lone chains' blocks: a warp a chain (`WarpLevels`).  The window
+// totals give each window 4 warps, one a chain; the Horner one warp a set.
+constexpr int kTotalsBlock = 4 * 32;
+constexpr int kHornerBlock = 32;
+
+// A point that every group of the warp holds, into shared memory as its
+// X, Y, Z words (3NL): group 0 writes it.
+template <int NL>
+__device__ __forceinline__ void share_point_l(uint32_t* sh, const uint32_t* X,
+                                              const uint32_t* Y,
+                                              const uint32_t* Z,
+                                              const Lanes& ln) {
+    constexpr int K = NL / kLanes;
+    if (ln.base == 0) {
+#pragma unroll
+        for (int k = 0; k < K; k++) {
+            sh[ln.j * K + k] = X[k];
+            sh[NL + ln.j * K + k] = Y[k];
+            sh[2 * NL + ln.j * K + k] = Z[k];
+        }
+    }
+}
+
+template <int NL>
+__device__ __forceinline__ void shared_point_l(uint32_t* X, uint32_t* Y,
+                                               uint32_t* Z,
+                                               const uint32_t* sh, int j) {
+    constexpr int K = NL / kLanes;
+#pragma unroll
+    for (int k = 0; k < K; k++) {
+        X[k] = sh[j * K + k];
+        Y[k] = sh[NL + j * K + k];
+        Z[k] = sh[2 * NL + j * K + k];
+    }
+}
+
 // out (3, NL, W): per window w, wr = sum_g g*rowsum[w, g] and
 // wc = sum_k k*colsum[w, k] by descending running sums (running +=
 // arr[m-1-t]; total += running, from the identity), then dbl doublings of
-// wr (wr + wr) and wr + wc.  rowsum (3, NL, W*G), colsum (3, NL, W*Kc).
-// The two chains are independent and share the loop, so their adds can
-// overlap.  One group per window.
+// wr and wr + wc.  rowsum (3, NL, W*G), colsum (3, NL, W*Kc).
+//
+// One block a window, one warp a chain: warp 0 the rows' running sum,
+// warp 1 their total, warps 2 and 3 the columns'.  At step s a running
+// warp forms running_{s+1} = running_s + arr[m-1-s] while its total warp
+// forms total_s = total_{s-1} + running_s from the shared copy of the
+// step before (two buffers, one barrier a step), so the 4 chains of
+// _weighted_sum_plain's adds, on the same operands in the same order,
+// take max(G, Kc) steps of one add, not 2(G-1) + 2(Kc-1) adds in a row.
+// Warp 1 then doubles its total dbl times (`ec_dbl_l`, the words of
+// wr + wr on these points) and adds the columns' total.
 template <int NL, bool GA>
-__global__ void __launch_bounds__(kSumBlock)
+__global__ void __launch_bounds__(kTotalsBlock)
 ec_window_totals_kernel(uint32_t* out, const uint32_t* rowsum,
                         const uint32_t* colsum, int W, int G, int Kc,
                         int dbl, Field<NL> f,
                         const __grid_constant__ CurveA<NL> ca) {
     constexpr int K = NL / kLanes;
+    __shared__ uint32_t running[2][2][3 * NL];   // [axis][step & 1]
+    __shared__ uint32_t col_total[3 * NL];
     const Lanes ln;
-    bool mine;
-    const long long w = group_index(W, mine);
+    const WarpLevels<NL> lv;
     const FieldL<NL> fl = field_l<NL, GA>(f, ca, ln.j);
-    uint32_t rX[K], rY[K], rZ[K], tX[K], tY[K], tZ[K];    // rows' chain
-    uint32_t cX[K], cY[K], cZ[K], uX[K], uY[K], uZ[K];    // columns' chain
-    uint32_t x2[K], y2[K], z2[K];
-    identity_l<NL>(rX, rY, rZ, fl);
-    identity_l<NL>(tX, tY, tZ, fl);
-    identity_l<NL>(cX, cY, cZ, fl);
-    identity_l<NL>(uX, uY, uZ, fl);
-    const int steps = (G > Kc ? G : Kc) - 1;
-    for (int t = 0; t < steps; t++) {
-        if (t < G - 1) {
-            load_point_l<NL>(x2, y2, z2, rowsum, (size_t)W * G,
-                                (size_t)w * G + (G - 1 - t), ln.j);
-            ec_add_l<NL, GA>(rX, rY, rZ, x2, y2, z2, fl, ln);
-            ec_add_l<NL, GA>(tX, tY, tZ, rX, rY, rZ, fl, ln);
+    const int w = blockIdx.x;
+    const int warp = threadIdx.x / 32;
+    const int axis = warp >> 1;                  // 0 rows, 1 columns
+    const bool total = warp & 1;
+    const uint32_t* arr = axis ? colsum : rowsum;
+    const int m = axis ? Kc : G;
+    const size_t stride = (size_t)W * m;
+    uint32_t X[K], Y[K], Z[K], x2[K], y2[K], z2[K];
+    identity_l<NL>(X, Y, Z, fl);
+    if (!total && m > 1)
+        load_point_l<NL>(x2, y2, z2, arr, stride, (size_t)w * m + m - 1,
+                         ln.j);
+    const int steps = G > Kc ? G : Kc;
+    for (int s = 0; s < steps; s++) {
+        if (!total && s < m - 1) {
+            ec_add_lv<NL, GA>(X, Y, Z, x2, y2, z2, fl, ln, lv);
+            share_point_l<NL>(running[axis][s & 1], X, Y, Z, ln);
+            if (s + 1 < m - 1)
+                load_point_l<NL>(x2, y2, z2, arr, stride,
+                                 (size_t)w * m + m - 2 - s, ln.j);
+        } else if (total && s >= 1 && s < m) {
+            shared_point_l<NL>(x2, y2, z2, running[axis][(s - 1) & 1],
+                               ln.j);
+            ec_add_lv<NL, GA>(X, Y, Z, x2, y2, z2, fl, ln, lv);
         }
-        if (t < Kc - 1) {
-            load_point_l<NL>(x2, y2, z2, colsum, (size_t)W * Kc,
-                                (size_t)w * Kc + (Kc - 1 - t), ln.j);
-            ec_add_l<NL, GA>(cX, cY, cZ, x2, y2, z2, fl, ln);
-            ec_add_l<NL, GA>(uX, uY, uZ, cX, cY, cZ, fl, ln);
-        }
+        __syncthreads();
     }
-    for (int d = 0; d < dbl; d++) {
-        copy_point_l<NL>(x2, y2, z2, tX, tY, tZ);
-        ec_add_l<NL, GA>(tX, tY, tZ, x2, y2, z2, fl, ln);
+    if (warp == 3) share_point_l<NL>(col_total, X, Y, Z, ln);
+    if (warp == 1) {
+        for (int d = 0; d < dbl; d++) ec_dbl_l<NL, GA>(X, Y, Z, fl, ln, lv);
     }
-    ec_add_l<NL, GA>(tX, tY, tZ, uX, uY, uZ, fl, ln);
-    if (mine) store_point_l<NL>(out, W, w, tX, tY, tZ, ln.j);
+    __syncthreads();
+    if (warp == 1) {
+        shared_point_l<NL>(x2, y2, z2, col_total, ln.j);
+        ec_add_lv<NL, GA>(X, Y, Z, x2, y2, z2, fl, ln, lv);
+        if (ln.base == 0) store_point_l<NL>(out, W, w, X, Y, Z, ln.j);
+    }
 }
 
 // out (3, NL, n_sets): per set, Horner over its wps window totals from the
-// highest: acc = identity; acc = 2^c acc (c doublings acc + acc), then
+// highest: acc = identity; acc = 2^c acc (c doublings), then
 // acc + totals[set, w], for w = wps-1 .. 0.  totals (3, NL, n_sets*wps).
-// One group per set.
+// One warp a set (`WarpLevels`), the next total loaded during the
+// doublings.  The c doublings of the opening identity are skipped: the
+// identity doubles to itself exactly, by either doubling; its first add
+// is not (it scales the triple by the total's Y).
 template <int NL, bool GA>
-__global__ void __launch_bounds__(kSumBlock)
+__global__ void __launch_bounds__(kHornerBlock)
 ec_horner_kernel(uint32_t* out, const uint32_t* totals, int n_sets, int wps,
                  int c, Field<NL> f,
                  const __grid_constant__ CurveA<NL> ca) {
     constexpr int K = NL / kLanes;
     const Lanes ln;
-    bool mine;
-    const long long set = group_index(n_sets, mine);
+    const WarpLevels<NL> lv;
     const FieldL<NL> fl = field_l<NL, GA>(f, ca, ln.j);
-    uint32_t X[K], Y[K], Z[K], x2[K], y2[K], z2[K];
+    const int set = blockIdx.x;
+    const size_t stride = (size_t)n_sets * wps;
+    uint32_t X[K], Y[K], Z[K], x2[K], y2[K], z2[K], x3[K], y3[K], z3[K];
     identity_l<NL>(X, Y, Z, fl);
+    load_point_l<NL>(x2, y2, z2, totals, stride,
+                     (size_t)set * wps + wps - 1, ln.j);
     for (int w = wps - 1; w >= 0; w--) {
-        for (int d = 0; d < c; d++) {
-            copy_point_l<NL>(x2, y2, z2, X, Y, Z);
-            ec_add_l<NL, GA>(X, Y, Z, x2, y2, z2, fl, ln);
+        if (w > 0)
+            load_point_l<NL>(x3, y3, z3, totals, stride,
+                             (size_t)set * wps + w - 1, ln.j);
+        if (w < wps - 1) {
+            for (int d = 0; d < c; d++)
+                ec_dbl_l<NL, GA>(X, Y, Z, fl, ln, lv);
         }
-        load_point_l<NL>(x2, y2, z2, totals, (size_t)n_sets * wps,
-                            (size_t)set * wps + w, ln.j);
-        ec_add_l<NL, GA>(X, Y, Z, x2, y2, z2, fl, ln);
+        ec_add_lv<NL, GA>(X, Y, Z, x2, y2, z2, fl, ln, lv);
+        if (w > 0) copy_point_l<NL>(x2, y2, z2, x3, y3, z3);
     }
-    if (mine) store_point_l<NL>(out, n_sets, set, X, Y, Z, ln.j);
+    if (ln.base == 0) store_point_l<NL>(out, n_sets, set, X, Y, Z, ln.j);
 }
 
 }  // namespace
@@ -417,11 +493,10 @@ int BP_C_NAME(bp_ec_window_totals)(
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (W <= 0 || G <= 0 || Kc <= 0 || dbl < 0)
         return (int)cudaErrorInvalidValue;
-    const unsigned grid = groups_grid(W, kSumBlock);
     return launch_field<kBuilt>(nl, static_cast<const uint32_t*>(consts),
                         [&](auto f, auto ca, auto ga) {
         ec_window_totals_kernel<decltype(f)::kWords, decltype(ga)::value>
-            <<<grid, kSumBlock, 0, st>>>(
+            <<<W, kTotalsBlock, 0, st>>>(
                 static_cast<uint32_t*>(out),
                 static_cast<const uint32_t*>(rowsum),
                 static_cast<const uint32_t*>(colsum), W, G, Kc, dbl, f, ca);
@@ -433,11 +508,10 @@ int BP_C_NAME(bp_ec_horner)(
     const void* consts, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (n_sets <= 0 || wps <= 0 || c < 0) return (int)cudaErrorInvalidValue;
-    const unsigned grid = groups_grid(n_sets, kSumBlock);
     return launch_field<kBuilt>(nl, static_cast<const uint32_t*>(consts),
                         [&](auto f, auto ca, auto ga) {
         ec_horner_kernel<decltype(f)::kWords, decltype(ga)::value>
-            <<<grid, kSumBlock, 0, st>>>(
+            <<<n_sets, kHornerBlock, 0, st>>>(
                 static_cast<uint32_t*>(out),
                 static_cast<const uint32_t*>(totals), n_sets, wps, c, f, ca);
     });

@@ -578,4 +578,237 @@ __device__ __forceinline__ void proj_round_l(uint32_t* X, uint32_t* Y,
     }
 }
 
+// ---------------------------------------------------------------------------
+// The lone chains: kernel 3's window totals and Horner, and the chain
+// kernel's latency forms (roofline_kernels.cu).  One chain of dependent
+// group operations has few threads to spread over, so its time is the
+// latency of each operation, not a throughput.  ec_add_l above runs its
+// 12 (18) products one after another on one group; but their dependency
+// depth is 2 (3): the group law below is written as levels of independent
+// products, and a level runs on a policy `Lv`:
+//   GroupLevels  the products one after another on the calling group;
+//   WarpLevels   product i on group i of the warp, all at once, each result
+//                then passed to every group by full-width shuffles, so that
+//                the warp's 8 groups hold the same values: one chain a
+//                warp, a level taking one product's latency.
+// The adds, subtractions and small multiples between the levels run on
+// every group alike (warp-uniform control flow); their independent chains
+// overlap in the instruction stream.
+// ---------------------------------------------------------------------------
+
+template <int NL>
+struct GroupLevels {
+    // r[i] = a[i] * b[i] for i < N; no r[i] is an operand of the level
+    template <int N>
+    __device__ __forceinline__ void operator()(
+            uint32_t* const (&r)[N], const uint32_t* const (&a)[N],
+            const uint32_t* const (&b)[N], const FieldL<NL>& f,
+            const Lanes& ln) const {
+#pragma unroll
+        for (int i = 0; i < N; i++) mont_mul_l<NL>(r[i], a[i], b[i], f, ln);
+    }
+};
+
+template <int NL>
+struct WarpLevels {
+    static constexpr int kGroups = 32 / kLanes;
+
+    template <int N>
+    __device__ __forceinline__ void operator()(
+            uint32_t* const (&r)[N], const uint32_t* const (&a)[N],
+            const uint32_t* const (&b)[N], const FieldL<NL>& f,
+            const Lanes& ln) const {
+        static_assert(N <= kGroups, "a level takes one product a group");
+        constexpr int K = NL / kLanes;
+        const int g = ln.base / kLanes;
+        uint32_t x[K], y[K], p[K];
+#pragma unroll
+        for (int k = 0; k < K; k++) {
+            x[k] = a[0][k];
+            y[k] = b[0][k];
+        }
+#pragma unroll
+        for (int i = 1; i < N; i++) {
+#pragma unroll
+            for (int k = 0; k < K; k++) {
+                x[k] = g == i ? a[i][k] : x[k];
+                y[k] = g == i ? b[i][k] : y[k];
+            }
+        }
+        mont_mul_l<NL>(p, x, y, f, ln);
+#pragma unroll
+        for (int i = 0; i < N; i++) {
+#pragma unroll
+            for (int k = 0; k < K; k++)
+                r[i][k] = __shfl_sync(kWarp, p[k], i * kLanes + ln.j);
+        }
+    }
+};
+
+// P1 += P2, complete: RCB16 algorithm 7 (a = 0) as 2 levels of 6
+// products, or algorithm 1 (GA) as 3 levels of 6.  The same field values
+// as ec_add_l, so the same canonical words: algorithm 7's small multiples
+// move before the second level (b3*yz*xz = yz*(b3*xz), 3b3*t0*xz =
+// (3*t0)*(b3*xz), 3*t0*xy = (3*t0)*xy), where they overlap the m and n of
+// the same level, and leave one add or subtraction after it.
+template <int NL, bool GA, class Lv>
+__device__ __forceinline__ void ec_add_lv(uint32_t* X1, uint32_t* Y1,
+                                          uint32_t* Z1, const uint32_t* X2,
+                                          const uint32_t* Y2,
+                                          const uint32_t* Z2,
+                                          const FieldL<NL>& f,
+                                          const Lanes& ln, const Lv& lv) {
+    constexpr int K = NL / kLanes;
+    uint32_t s[6][K], t0[K], t1[K], t2[K], xy[K], yz[K], xz[K];
+    uint32_t m[K], n[K], p[6][K];
+    add_mod_l<NL>(s[0], X1, Y1, f, ln);
+    add_mod_l<NL>(s[1], X2, Y2, f, ln);
+    add_mod_l<NL>(s[2], Y1, Z1, f, ln);
+    add_mod_l<NL>(s[3], Y2, Z2, f, ln);
+    add_mod_l<NL>(s[4], X1, Z1, f, ln);
+    add_mod_l<NL>(s[5], X2, Z2, f, ln);
+    {
+        uint32_t* const r[6] = {t0, t1, t2, xy, yz, xz};
+        const uint32_t* const a[6] = {X1, Y1, Z1, s[0], s[2], s[4]};
+        const uint32_t* const b[6] = {X2, Y2, Z2, s[1], s[3], s[5]};
+        lv(r, a, b, f, ln);
+    }
+    sub_mod_l<NL>(xy, xy, t0, f, ln);
+    sub_mod_l<NL>(yz, yz, t1, f, ln);
+    sub_mod_l<NL>(xz, xz, t0, f, ln);
+    sub_mod_l<NL>(xy, xy, t1, f, ln);
+    sub_mod_l<NL>(yz, yz, t2, f, ln);
+    sub_mod_l<NL>(xz, xz, t2, f, ln);
+    if constexpr (GA) {
+        const CurveA<NL>& ca = *f.ca;
+        uint32_t ka[K], ka2[K], kb3[K], v[6][K], u1[K], u4[K];
+        lane_words<NL>(ka, ca.a, ln.j);
+        lane_words<NL>(ka2, ca.a2, ln.j);
+        lane_words<NL>(kb3, ca.b3, ln.j);
+        {
+            uint32_t* const r[6] = {v[0], v[1], v[2], v[3], v[4], v[5]};
+            const uint32_t* const a[6] = {xz, t2, t2, t2, t0, xz};
+            const uint32_t* const b[6] = {ka, kb3, ka, ka2, ka, kb3};
+            lv(r, a, b, f, ln);
+        }
+        add_mod_l<NL>(u1, v[0], v[1], f, ln);       // a*xz + 3b*t2
+        sub_mod_l<NL>(m, t1, u1, f, ln);
+        add_mod_l<NL>(n, t1, u1, f, ln);
+        mul_small_l<NL>(u1, t0, 3, f, ln);
+        add_mod_l<NL>(u1, u1, v[2], f, ln);         // 3*t0 + a*t2
+        sub_mod_l<NL>(u4, v[4], v[3], f, ln);
+        add_mod_l<NL>(u4, v[5], u4, f, ln);         // 3b*xz + a*t0 - a^2*t2
+        uint32_t* const r[6] = {p[0], p[1], p[2], p[3], p[4], p[5]};
+        const uint32_t* const a[6] = {xy, yz, m, u1, yz, xy};
+        const uint32_t* const b[6] = {m, u4, n, u4, n, u1};
+        lv(r, a, b, f, ln);
+    } else {
+        uint32_t bxz[K], t03[K];
+        mul_small_l<NL>(n, t2, f.b3, f, ln);        // b3*t2
+        sub_mod_l<NL>(m, t1, n, f, ln);
+        add_mod_l<NL>(n, t1, n, f, ln);
+        mul_small_l<NL>(bxz, xz, f.b3, f, ln);
+        mul_small_l<NL>(t03, t0, 3, f, ln);
+        uint32_t* const r[6] = {p[0], p[1], p[2], p[3], p[4], p[5]};
+        const uint32_t* const a[6] = {xy, yz, n, t03, yz, t03};
+        const uint32_t* const b[6] = {m, bxz, m, bxz, n, xy};
+        lv(r, a, b, f, ln);
+    }
+    sub_mod_l<NL>(X1, p[0], p[1], f, ln);   // xy*m - b3*yz*xz (a: yz*u4)
+    add_mod_l<NL>(Y1, p[2], p[3], f, ln);   // n*m + 3b3*t0*xz (a: u1*u4)
+    add_mod_l<NL>(Z1, p[4], p[5], f, ln);   // yz*n + 3*t0*xy (a: xy*u1)
+}
+
+// P = 2P, the dedicated doubling: RCB16 algorithm 9 (a = 0: 2 levels of 4
+// products, 2 of them squarings, and one small multiple by b3) or
+// algorithm 3 (GA: levels of 6, 7 and 4 products, a, a^2 and 3b from
+// `CurveA`).
+//
+// On a point of the curve it gives the same projective triple as the
+// complete add ec_add_l(P, P), the doubling the JAX package runs
+// (`ec_double` = `ec_add(P, P)`): with the curve's equation both reduce,
+// for a = 0, to X3 = 2XY(Y^2 - 9bZ^2), Y3 = Y^4 + 18bY^2Z^2 - 27b^2Z^4,
+// Z3 = 8Y^3Z, and algorithm 3 is algorithm 1 with P = Q likewise; the
+// identity (0 : 1 : 0) doubles to itself.  The values are canonical, so
+// the words are equal.  Off the curve the two differ: the caller's points
+// must be sums of curve points, as the MSM's are (`G1.from_bytes` and the
+// generators check theirs).  The plain version is ops/ec.py `ec_dbl_plain`
+// (the same field values: the levels only regroup algorithm 3's
+// a*(X^2 - aZ^2) as a*X^2 - a^2*Z^2 and double a factor before a product
+// instead of the product after it).
+template <int NL, bool GA, class Lv = GroupLevels<NL>>
+__device__ __forceinline__ void ec_dbl_l(uint32_t* X, uint32_t* Y,
+                                         uint32_t* Z, const FieldL<NL>& f,
+                                         const Lanes& ln,
+                                         const Lv& lv = Lv()) {
+    constexpr int K = NL / kLanes;
+    if constexpr (GA) {
+        const CurveA<NL>& ca = *f.ca;
+        uint32_t t0[K], t1[K], t2[K], xy[K], xz[K], yz[K];
+        uint32_t ka[K], ka2[K], kb3[K], v[7][K], e[K], g[K], t3[K];
+        {
+            uint32_t* const r[6] = {t0, t1, t2, xy, xz, yz};
+            const uint32_t* const a[6] = {X, Y, Z, X, X, Y};
+            const uint32_t* const b[6] = {X, Y, Z, Y, Z, Z};
+            lv(r, a, b, f, ln);
+        }
+        add_mod_l<NL>(xz, xz, xz, f, ln);           // 2XZ
+        add_mod_l<NL>(xy, xy, xy, f, ln);           // 2XY
+        add_mod_l<NL>(yz, yz, yz, f, ln);           // 2YZ
+        lane_words<NL>(ka, ca.a, ln.j);
+        lane_words<NL>(ka2, ca.a2, ln.j);
+        lane_words<NL>(kb3, ca.b3, ln.j);
+        {
+            uint32_t* const r[7] = {v[0], v[1], v[2], v[3], v[4], v[5],
+                                    v[6]};
+            const uint32_t* const a[7] = {xz, t2, xz, t2, t0, t2, yz};
+            const uint32_t* const b[7] = {ka, kb3, kb3, ka, ka, ka2, t1};
+            lv(r, a, b, f, ln);
+        }
+        add_mod_l<NL>(e, v[0], v[1], f, ln);        // 2aXZ + 3bZ^2
+        sub_mod_l<NL>(g, t1, e, f, ln);             // X3 of line 11
+        add_mod_l<NL>(e, t1, e, f, ln);             // Y3 of line 12
+        sub_mod_l<NL>(t3, v[4], v[5], f, ln);
+        add_mod_l<NL>(t3, t3, v[2], f, ln);         // a(X^2 - aZ^2) + 6bXZ
+        add_mod_l<NL>(t1, t0, t0, f, ln);
+        add_mod_l<NL>(t1, t1, t0, f, ln);
+        add_mod_l<NL>(t1, t1, v[3], f, ln);         // 3X^2 + aZ^2
+        add_mod_l<NL>(Z, v[6], v[6], f, ln);
+        add_mod_l<NL>(Z, Z, Z, f, ln);              // 8Y^3Z
+        {
+            uint32_t* const r[4] = {t0, t2, xz, v[0]};
+            const uint32_t* const a[4] = {g, xy, t1, yz};
+            const uint32_t* const b[4] = {e, g, t3, t3};
+            lv(r, a, b, f, ln);
+        }
+        add_mod_l<NL>(Y, t0, xz, f, ln);
+        sub_mod_l<NL>(X, t2, v[0], f, ln);
+    } else {
+        uint32_t t0[K], t1[K], t2[K], xy[K], z8[K], y3[K], t3[K];
+        {
+            uint32_t* const r[4] = {t0, t1, t2, xy};
+            const uint32_t* const a[4] = {Y, Y, Z, X};
+            const uint32_t* const b[4] = {Y, Z, Z, Y};
+            lv(r, a, b, f, ln);
+        }
+        add_mod_l<NL>(z8, t0, t0, f, ln);
+        add_mod_l<NL>(z8, z8, z8, f, ln);
+        add_mod_l<NL>(z8, z8, z8, f, ln);           // 8Y^2
+        add_mod_l<NL>(xy, xy, xy, f, ln);           // 2XY
+        mul_small_l<NL>(t2, t2, f.b3, f, ln);       // 3bZ^2
+        add_mod_l<NL>(y3, t0, t2, f, ln);           // Y^2 + 3bZ^2
+        add_mod_l<NL>(t3, t2, t2, f, ln);
+        add_mod_l<NL>(t3, t3, t2, f, ln);
+        sub_mod_l<NL>(t0, t0, t3, f, ln);           // Y^2 - 9bZ^2
+        {
+            uint32_t* const r[4] = {t3, Z, y3, X};
+            const uint32_t* const a[4] = {t2, t1, t0, t0};
+            const uint32_t* const b[4] = {z8, z8, y3, xy};
+            lv(r, a, b, f, ln);
+        }
+        add_mod_l<NL>(Y, t3, y3, f, ln);
+    }
+}
+
+
 }  // namespace

@@ -56,7 +56,7 @@ SOURCES = {
                                     _P),
     },
     CSRC / "roofline_kernels.cu": {
-        "bp_ec_add_chain": (_P, _P, _LL, _I, _I, _P, _P),
+        "bp_ec_chain": (_P, _P, _LL, _I, _I, _I, _P, _P),
         "bp_mont_mul_chain": (_P, _P, _LL, _I, _I, _P, _P),
     },
     CSRC / "transcript_kernels.cu": {

@@ -170,6 +170,65 @@ def ec_double(P, ctx: CurveCtx):
     return ec_add(P, P, ctx)
 
 
+def ec_dbl_plain(P, ctx: CurveCtx):
+    """2P by RCB16's dedicated doubling, batched: algorithm 9 for a = 0
+    (8 products, 2 of them squarings, in two stacked multiplies of 4) or
+    algorithm 3 for a != 0.  The plain version of the lone chains'
+    `ec_dbl_l` (`csrc/ec_lanes.cuh`).  On a point of the curve it gives the
+    same projective triple as `ec_add(P, P)` (`ec_double`, the JAX
+    package's doubling), limb for limb, the identity included; on a triple
+    off the curve it need not."""
+    f = ctx.fp
+    X, Y, Z = P[0], P[1], P[2]
+    if not ctx.a_is_zero:
+        return _ec_dbl_general(X, Y, Z, ctx)
+    t = mont_mul(torch.stack([Y, Y, Z, X], dim=1),
+                 torch.stack([Y, Z, Z, Y], dim=1), f)
+    t0, t1, xy = t[:, 0], t[:, 1], t[:, 3]
+    z8 = add_mod(t0, t0, f)
+    z8 = add_mod(z8, z8, f)
+    z8 = add_mod(z8, z8, f)                            # 8Y^2
+    t2 = mul_small(t[:, 2], ctx.b3, f)                 # 3bZ^2
+    y3 = add_mod(t0, t2, f)
+    t0 = sub_mod(t0, add_mod(add_mod(t2, t2, f), t2, f), f)  # Y^2 - 9bZ^2
+    u = mont_mul(torch.stack([t2, t1, t0, t0], dim=1),
+                 torch.stack([z8, z8, y3, xy], dim=1), f)
+    return torch.stack([add_mod(u[:, 3], u[:, 3], f),  # 2XY(Y^2 - 9bZ^2)
+                        add_mod(u[:, 0], u[:, 2], f),
+                        u[:, 1]], dim=0)               # 8Y^3Z
+
+
+def _ec_dbl_general(X, Y, Z, ctx: CurveCtx):
+    """RCB16 algorithm 3 (general a), in the order of its lines."""
+    f = ctx.fp
+    consts = torch.as_tensor(ctx.gen_consts, device=X.device).reshape(
+        (f.L, 6) + (1,) * (X.ndim - 1))
+    a, b3 = consts[:, 0], consts[:, 4]
+    t = mont_mul(torch.stack([X, Y, Z, X, X], dim=1),
+                 torch.stack([X, Y, Z, Y, Z], dim=1), f)
+    t0, t1, t2 = t[:, 0], t[:, 1], t[:, 2]
+    t3 = add_mod(t[:, 3], t[:, 3], f)                  # 2XY
+    Z3 = add_mod(t[:, 4], t[:, 4], f)                  # 2XZ
+    X3 = mont_mul(a.expand_as(Z3), Z3, f)
+    Y3 = add_mod(X3, mont_mul(b3.expand_as(t2), t2, f), f)
+    X3 = sub_mod(t1, Y3, f)
+    Y3 = add_mod(t1, Y3, f)
+    Y3 = mont_mul(X3, Y3, f)
+    X3 = mont_mul(t3, X3, f)
+    Z3 = mont_mul(b3.expand_as(Z3), Z3, f)
+    t2 = mont_mul(a.expand_as(t2), t2, f)
+    t3 = mont_mul(a.expand_as(t0), sub_mod(t0, t2, f), f)
+    t3 = add_mod(t3, Z3, f)
+    t0 = add_mod(add_mod(add_mod(t0, t0, f), t0, f), t2, f)
+    Y3 = add_mod(Y3, mont_mul(t0, t3, f), f)
+    t2 = mont_mul(Y, Z, f)
+    t2 = add_mod(t2, t2, f)                            # 2YZ
+    X3 = sub_mod(X3, mont_mul(t2, t3, f), f)
+    Z3 = mont_mul(t2, t1, f)
+    Z3 = add_mod(Z3, Z3, f)
+    return torch.stack([X3, Y3, add_mod(Z3, Z3, f)], dim=0)
+
+
 def ec_select(mask, P, Q):
     """where(mask, P, Q) for a (*batch,)-shaped bool mask."""
     return torch.where(mask[None, None], P, Q)

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from ..config import curve
-from ..ops.ec import CurveCtx, ec_add
+from ..ops.ec import CurveCtx, ec_add, ec_dbl_plain
 from ..ops.ec_kernels import _consts, _launch, _on_card, _require_contiguous
 from ..ops.field import ints_to_limbs, mont_mul, pack32, unpack32
 
@@ -60,6 +60,13 @@ def mont_muls_per_add(ctx: CurveCtx):
     return 12 if ctx.a_is_zero else 18
 
 
+def mont_muls_per_dbl(ctx: CurveCtx):
+    """Montgomery products of one dedicated doubling (`ec_dbl_l`): 8 (RCB16
+    algorithm 9, a = 0) or 17 (algorithm 3, a != 0, its a*(X^2 - aZ^2) as
+    two products by constants)."""
+    return 8 if ctx.a_is_zero else 17
+
+
 def imad_per_ec_add(ctx: CurveCtx):
     return mont_muls_per_add(ctx) * imad_per_mont_mul(ctx)
 
@@ -77,14 +84,30 @@ def bound(n_bytes, n_imad):
 # The chain kernel (`csrc/roofline_kernels.cu`) and its plain versions
 # ---------------------------------------------------------------------------
 
-def ec_add_chain_plain(P32, iters, ctx: CurveCtx):
-    """P32 (3, NL, n) packed projective Montgomery points -> packed
-    acc after acc = P, then `iters` times acc = acc + P (`ops.ec.ec_add`)."""
+# The chain kernel's group-law forms (`bp_ec_chain`'s `form`): the add
+# acc + P or the doubling 2 acc, one group of 4 lanes a point (the bucket
+# kernels' layout) or one warp a point (the lone chains' `WarpLevels`)
+CHAIN_FORMS = ("add", "dbl", "add_warp", "dbl_warp")
+
+
+def ec_chain_plain(P32, iters, form, ctx: CurveCtx):
+    """P32 (3, NL, n) packed projective Montgomery points -> packed acc
+    after acc = P, then `iters` times acc = acc + P (`ops.ec.ec_add`; forms
+    "add" and "add_warp") or acc = 2 acc (`ops.ec.ec_dbl_plain`; "dbl" and
+    "dbl_warp")."""
+    if form not in CHAIN_FORMS:
+        raise ValueError(f"ec_chain: form {form!r} not in {CHAIN_FORMS}")
     P = unpack32(P32, 1)
     acc = P
     for _ in range(iters):
-        acc = ec_add(acc, P, ctx)
+        acc = ec_dbl_plain(acc, ctx) if form.startswith("dbl") \
+            else ec_add(acc, P, ctx)
     return pack32(acc, 1)
+
+
+def ec_add_chain_plain(P32, iters, ctx: CurveCtx):
+    """`ec_chain_plain`'s "add" form: `iters` times acc = acc + P."""
+    return ec_chain_plain(P32, iters, "add", ctx)
 
 
 def mont_mul_chain_plain(a32, iters, ctx: CurveCtx):
@@ -97,13 +120,19 @@ def mont_mul_chain_plain(a32, iters, ctx: CurveCtx):
     return pack32(acc, 0)
 
 
+def ec_chain32(out32, P32, iters, form, ctx: CurveCtx):
+    """The chain kernel's group-law form `form` (`CHAIN_FORMS`) on packed
+    CUDA operands, unchecked: writes out32 (3, NL, n).  Its build follows
+    the curve: an a != 0 curve runs (and counts as) algorithm 1's (and 3's
+    for the doubling)."""
+    _launch("bp_ec_chain", "chain", out32.data_ptr(), P32.data_ptr(),
+            P32.shape[2], iters, CHAIN_FORMS.index(form), ctx.fp.L // 2,
+            _consts(ctx).ctypes.data, ctx=ctx)
+
+
 def ec_add_chain32(out32, P32, iters, ctx: CurveCtx):
-    """The chain kernel's group-law form on packed CUDA operands,
-    unchecked: writes out32 (3, NL, n).  Its build follows the curve: an
-    a != 0 curve runs (and counts as) algorithm 1's."""
-    _launch("bp_ec_add_chain", "chain", out32.data_ptr(), P32.data_ptr(),
-            P32.shape[2], iters, ctx.fp.L // 2, _consts(ctx).ctypes.data,
-            ctx=ctx)
+    """`ec_chain32`'s "add" form: the roofline report's."""
+    ec_chain32(out32, P32, iters, "add", ctx)
 
 
 def mont_mul_chain32(out32, a32, iters, ctx: CurveCtx):
@@ -123,17 +152,24 @@ def _check_chain(name, x32, iters, shape):
         raise ValueError(f"{name}: iters must be >= 0, got {iters}")
 
 
-def ec_add_chain(P32, iters, ctx: CurveCtx):
-    """The chain kernel (`bp_ec_add_chain`), group-law form: see
-    `ec_add_chain_plain`."""
-    name = "ec_add_chain"
+def ec_chain(P32, iters, form, ctx: CurveCtx):
+    """The chain kernel (`bp_ec_chain`), group-law form `form`: see
+    `ec_chain_plain`."""
+    name = "ec_chain"
     _check_chain(name, P32, iters, (3, ctx.fp.L // 2))
+    if form not in CHAIN_FORMS:
+        raise ValueError(f"{name}: form {form!r} not in {CHAIN_FORMS}")
     if not _on_card(P32, name):
-        return ec_add_chain_plain(P32, iters, ctx)
+        return ec_chain_plain(P32, iters, form, ctx)
     _require_contiguous(name, P32)
     out = torch.empty_like(P32)
-    ec_add_chain32(out, P32, iters, ctx)
+    ec_chain32(out, P32, iters, form, ctx)
     return out
+
+
+def ec_add_chain(P32, iters, ctx: CurveCtx):
+    """`ec_chain`'s "add" form: see `ec_add_chain_plain`."""
+    return ec_chain(P32, iters, "add", ctx)
 
 
 def mont_mul_chain(a32, iters, ctx: CurveCtx):
@@ -223,3 +259,34 @@ def roofline_report(ctx=None, batch=8192, iters=100, device="cuda"):
         "model_note": MODEL_NOTE,
         "device": torch.cuda.get_device_name(device),
     }
+
+
+def chain_latency(ctx=None, iters=64, device="cuda", warm=20, reps=5):
+    """The latency of one step of each chain on the card, in microseconds:
+    one point (one warp) through `iters` dependent steps; `warm` launches
+    first (a lone warp's short launches leave the clocks where an idle
+    card keeps them), then the least of `reps` launches timed by CUDA
+    events, divided by `iters`: the product (`mont_mul`), and the group
+    law's forms of `CHAIN_FORMS` (the add and the dedicated doubling on one
+    group of 4 lanes, the layout of the bucket kernels, whose doubling
+    `ec_add_l(P, P)` takes the add's time; both on a warp, the lone
+    chains' layout).  A lone chain of depth d takes at least d times
+    these (PERF.md).  Raises for a device that is not a CUDA card."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"chain_latency measures a CUDA card, not {device}")
+    ctx = ctx or CurveCtx(curve())
+    P32 = chain_points(ctx, 1, device=device)
+    a32 = chain_elements(ctx, 1, device=device)
+    out_p, out_a = torch.empty_like(P32), torch.empty_like(a32)
+    launches = {"mont_mul": lambda: mont_mul_chain32(out_a, a32, iters, ctx)}
+    for form in CHAIN_FORMS:
+        launches[form] = (lambda form=form: ec_chain32(out_p, P32, iters,
+                                                       form, ctx))
+    for launch in launches.values():
+        for _ in range(warm):
+            launch()
+    us = {name: min(_kernel_seconds(launch) for _ in range(reps))
+          / iters * 1e6 for name, launch in launches.items()}
+    return {"limbs": ctx.fp.L, "iters": iters, "us": us,
+            "device": torch.cuda.get_device_name(device)}

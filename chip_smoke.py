@@ -146,13 +146,19 @@ Phases, each printing one JSON line with its seconds:
              the paths, phase 2's checks on ed25519 (kernels 2-4, kernel 3
              pairwise and its forms, 18 products an add in the bounds)
              and `kernels_at` at the shapes of the MSMs the phase ran;
+             then phase 2's checks on BN254 and secp256k1, which no path
+             here runs;
  14 roofline `utils/roofline.py: roofline_report` on BLS12-381 and
              ed25519 (one timed launch of each form of the chain kernel,
              `csrc/roofline_kernels.cu`: 100 dependent adds or products
              over 8192 distinct canonical inputs; measured and
              speed-of-light rates, utilisation), with the card's name and
-             power limit; phase 2 holds the chain kernel bit-exact against
-             its plain version at that size on both curves;
+             power limit, each after its `chain_latency` line (one point,
+             64 steps: the microseconds of a product, of an add and a
+             dedicated doubling on a group of 4 lanes, and of both on a
+             warp, the lone chains' layout); phase 2 holds the chain
+             kernel bit-exact against its plain version at that size on
+             both curves, and its doubling and warp forms at 1024 points;
  11 launches the launch counts of each path (phases 3-4, 5, 6, 6b, 7, 9,
              10, 8, 12, 13, 14), kernel 3's also by form, each split by
              build (a = 0, and a != 0 under `<kernel>:a!=0`), each build
@@ -180,7 +186,8 @@ from pathlib import Path
 import torch
 
 import bulletproofs_tpu_torch as bt
-from bulletproofs_tpu_torch.config import BLS381, ED25519, curve, using_curve
+from bulletproofs_tpu_torch.config import (BLS381, BN254, ED25519, SECP256K1,
+                                           curve, using_curve)
 from bulletproofs_tpu_torch.ipp import verification_scalars
 from bulletproofs_tpu_torch.ops import build, ec as ec_mod, ec_kernels as ek
 from bulletproofs_tpu_torch.ops import transcript_kernels as tk
@@ -210,7 +217,8 @@ from bulletproofs_tpu_torch.utils import roofline
 from bulletproofs_tpu_torch.utils.roofline import (HBM_BYTES_PER_S,
                                                    IMAD_PER_S, INT8_MAC_PER_S,
                                                    bound, imad_per_mont_mul,
-                                                   mont_muls_per_add)
+                                                   mont_muls_per_add,
+                                                   mont_muls_per_dbl)
 from bulletproofs_tpu_torch.parallel import (create_ipp_sharded, make_mesh,
                                              make_mesh_2d, msm_multi_sharded,
                                              msm_sharded, msm_sharded_2d,
@@ -293,7 +301,9 @@ KERNEL_FUNCTIONS = {
     "bucket_round_add": ("bucket_round_add_kernel",),
     "ec_add": ("ec_add_kernel", "ec_gather_sum_kernel",
                "ec_window_totals_kernel", "ec_horner_kernel"),
-    "chain": ("ec_add_chain_kernel", "mont_mul_chain_kernel"),
+    "chain": ("ec_add_chain_kernel", "ec_dbl_chain_kernel",
+              "warp_add_chain_kernel", "warp_dbl_chain_kernel",
+              "mont_mul_chain_kernel"),
 }
 # kernel 3's forms in phase 2 -> the kernel form each launches
 FORM_KERNEL = {"split_fold": "gather_sum", "dup_fold": "gather_sum",
@@ -945,11 +955,15 @@ def form_cases(ctx, proj, gen, device, paths):
     fold over W' rows of B buckets, the row and column sums, the window
     totals, and where the path runs it on the card (the n-point MSM's
     `msm_device`) the window Horner.  The buckets are projective points,
-    1 in 16 the identity."""
+    1 in 16 the identity.  The bound counts the products the kernels run:
+    the window totals' and the Horner's doublings are dedicated ones
+    (`mont_muls_per_dbl`), and the Horner skips those of its opening
+    identity."""
     imad = imad_per_mont_mul(ctx)
     nl = ctx.fp.L // 2
     pt_bytes = 3 * nl * 4
     add = mont_muls_per_add(ctx) * imad
+    dbl_ops = mont_muls_per_dbl(ctx) * imad     # the lone chains' doubling
     m = proj.shape[2]
 
     def points(count):
@@ -1001,7 +1015,7 @@ def form_cases(ctx, proj, gen, device, paths):
         rowsum = points(W * G).reshape(3, nl, W, G)
         colsum = points(W * K).reshape(3, nl, W, K)
         dbl = sh["c"] - (sh["c"] + 1) // 2
-        adds = W * (2 * (G - 1) + 2 * (K - 1) + dbl + 1)
+        adds = W * (2 * (G - 1) + 2 * (K - 1) + 1)
 
         def bare_totals(args, W=W):
             out = torch.empty((3, nl, W), dtype=torch.int32, device=device)
@@ -1009,7 +1023,8 @@ def form_cases(ctx, proj, gen, device, paths):
         cases.append(("ec_add", ek.ec_window_totals,
                       ek.ec_window_totals_plain, (rowsum, colsum, dbl),
                       bare_totals,
-                      ((W * (G + K) + W) * pt_bytes, adds * add),
+                      ((W * (G + K) + W) * pt_bytes,
+                       adds * add + W * dbl * dbl_ops),
                       {"form": "window_totals", "path": path, "W": W,
                        "G": G, "K": K, "dbl": dbl}))
         if sh["horner"]:
@@ -1022,7 +1037,8 @@ def form_cases(ctx, proj, gen, device, paths):
                 return lambda: ek.ec_horner32(out, *args, ctx)
             cases.append(("ec_add", ek.ec_horner, ek.ec_horner_plain,
                           (totals, W // sets, c), bare_horner,
-                          ((W + sets) * pt_bytes, W * (c + 1) * add),
+                          ((W + sets) * pt_bytes,
+                           W * add + (W - sets) * c * dbl_ops),
                           {"form": "horner", "path": path, "sets": sets,
                            "wps": W // sets, "c": c}))
     return cases
@@ -2432,18 +2448,32 @@ def phase_ed25519(device, n, seed, reps, ref, r1cs=None, gadgets=True):
 
 
 ROOFLINE_CURVES = (BLS381, ED25519)
+# the curves no path of this script runs: phase 2's checks after the paths
+# hold every kernel and form bit-exact at their widths too
+OTHER_CURVES = (BN254, SECP256K1)
 # the roofline report's size: the JAX bench's (`bench.py:711-720`)
 ROOFLINE_BATCH, ROOFLINE_ITERS = 8192, 100
+# the steps of `chain_latency`'s one-point chains
+LATENCY_ITERS = 64
+
+
+# the chain kernel's doubling and warp forms: a shorter chain over fewer
+# points, their plain versions being the slow part of phase 2
+CHAIN_FORM_BATCH, CHAIN_FORM_ITERS = 1024, 16
 
 
 def chain_cases(ctx, batch, device):
     """Phase 2's cases of the roofline harness's chain kernel: its two
-    forms, `ROOFLINE_ITERS` dependent adds or products over `batch`
-    distinct canonical inputs (the report's size on the card).  Bound: the
-    IMADs of the function's products (12 or 18 an add) and its inputs and
+    roofline forms, `ROOFLINE_ITERS` dependent adds or products over
+    `batch` distinct canonical inputs (the report's size on the card), and
+    its doubling (a group of 4 lanes a point) and warp forms (a warp a
+    point: the lone chains' add and doubling), `CHAIN_FORM_ITERS` steps
+    over `CHAIN_FORM_BATCH` points.  Bound: the IMADs of the function's
+    products (12 or 18 an add, 8 or 17 a doubling) and its inputs and
     outputs once.  Each shape names the build it runs: the product has no
     curve constant, so an a != 0 curve's runs the a = 0 build of its
     width, and its launches count as that build's."""
+    build_of = "a!=0" if not ctx.a_is_zero else "a=0"
     cases = []
     for op, make, per_step in (
             ("ec_add", roofline.chain_points, roofline.imad_per_ec_add(ctx)),
@@ -2460,8 +2490,27 @@ def chain_cases(ctx, batch, device):
                       (x, ROOFLINE_ITERS), bare,
                       (2 * x.numel() * 4, batch * ROOFLINE_ITERS * per_step),
                       {"op": op, "batch": batch, "iters": ROOFLINE_ITERS,
-                       "build": "a!=0" if op == "ec_add"
-                       and not ctx.a_is_zero else "a=0"}))
+                       "build": build_of if op == "ec_add" else "a=0"}))
+    imad = imad_per_mont_mul(ctx)
+    form_batch = min(batch, CHAIN_FORM_BATCH)
+    x = roofline.chain_points(ctx, form_batch, device=device)
+    for form in roofline.CHAIN_FORMS[1:]:
+        per_step = imad * (mont_muls_per_dbl(ctx) if form.startswith("dbl")
+                           else mont_muls_per_add(ctx))
+
+        def bare(args, form=form):
+            out = torch.empty_like(args[0])
+            return lambda: roofline.ec_chain32(out, *args, form, ctx)
+        cases.append((
+            "chain",
+            lambda P32, iters, ctx, form=form: roofline.ec_chain(
+                P32, iters, form, ctx),
+            lambda P32, iters, ctx, form=form: roofline.ec_chain_plain(
+                P32, iters, form, ctx),
+            (x, CHAIN_FORM_ITERS), bare,
+            (2 * x.numel() * 4, form_batch * CHAIN_FORM_ITERS * per_step),
+            {"op": form, "batch": form_batch,
+             "iters": CHAIN_FORM_ITERS, "build": build_of}))
     return cases
 
 
@@ -2469,11 +2518,19 @@ def phase_roofline(smi=None):
     """The H100 roofline (`utils/roofline.py: roofline_report`) on each
     curve of `ROOFLINE_CURVES` at the report's size, with the card's name
     and power limit (`smi`): measured and speed-of-light rates of the
-    complete add and the product, and their utilisation.  The chain kernel
+    complete add and the product, and their utilisation; before it, the
+    latency of one step of each chain form at one point (`chain_latency`:
+    the product, and the add and doubling on a group of 4 lanes and on a
+    warp), the floor of the lone chains.  The chain kernel
     it times is held bit-exact against its plain version at this size in
     phase 2 (`chain_cases`)."""
     t0 = time.time()
     for cv in ROOFLINE_CURVES:
+        # one point's chain: the latency of a product, an add and a
+        # doubling, on a group of 4 lanes and on a warp
+        emit({"phase": "chain_latency", "curve": cv.name, "nvidia_smi": smi,
+              **roofline.chain_latency(CurveCtx(cv), LATENCY_ITERS,
+                                       "cuda")})
         report = roofline.roofline_report(CurveCtx(cv), ROOFLINE_BATCH,
                                           ROOFLINE_ITERS, "cuda")
         emit({"phase": "roofline", "curve": cv.name, "nvidia_smi": smi,
@@ -2747,6 +2804,9 @@ def main():
             ed_records, ed_check = phase_kernels("cuda", args.n, args.seed,
                                                  cv=ED25519)
             ed_check("ed25519", per_call["ed25519"]["msms"])
+        for cv in OTHER_CURVES:           # phase 2 on the other curves
+            with using_curve(cv):
+                phase_kernels("cuda", args.n, args.seed, cv=cv)
         check_msms("sharded", per_call["sharded"]["msms"])
         for path in ("smt", "batch", "gadgets"):
             res = per_call[path]

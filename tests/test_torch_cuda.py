@@ -206,12 +206,15 @@ def _packed_points(ctx, proj, count, seed, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("curve", sorted(CURVES))
 @pytest.mark.parametrize("form", ["split_fold", "dup_fold", "rowcol",
-                                  "window_totals", "horner"])
+                                  "window_totals", "horner",
+                                  "horner_top_identity", "horner_two_sets"])
 def test_sequential_form_matches_plain_on_card(form, curve, cuda_device):
     """Kernel 3's sequential forms at the combine shapes of a two-set MSM
     at c = 8 (the IPA's and the range proof's; `window_plan(dup=True)`) and,
-    for the Horner, of a one-set MSM (`msm_device`): bit-exact against
-    their plain versions, one launch each."""
+    for the Horner, of a one-set MSM (`msm_device`), of one whose top
+    window total is the identity (the kernel skips the doublings of its
+    opening identity) and of the fused IPA's two sets in one launch:
+    bit-exact against their plain versions, one launch each."""
     cv = CURVES[curve]
     ctx, _, _, proj, _, _ = _round_inputs(cv, 21, 64, 2, 3, cuda_device)
     c, B = 8, 256
@@ -240,7 +243,12 @@ def test_sequential_form_matches_plain_on_card(form, curve, cuda_device):
         wrapper, plain = ek.ec_window_totals, ek.ec_window_totals_plain
     else:
         wps = -(-cv.fr.n_bits // c)
-        args = (_packed_points(ctx, proj, wps, 8, cuda_device), wps, c)
+        sets = 2 if form == "horner_two_sets" else 1
+        totals = _packed_points(ctx, proj, sets * wps, 8, cuda_device)
+        if form == "horner_top_identity":
+            totals[:, :, wps - 1] = ek.packed_identity(ctx, (1,),
+                                                       cuda_device)[:, :, 0]
+        args = (totals, wps, c)
         wrapper, plain = ek.ec_horner, ek.ec_horner_plain
     ek.reset_launches()
     got = wrapper(*args, ctx)
@@ -965,6 +973,30 @@ def test_chain_kernel_matches_plain_on_card(op, curve, cuda_device):
     for key in ("ec_add", "mont_mul"):
         assert 0 < rep[f"{key}_per_s"] < rep[f"{key}_speed_of_light_per_s"]
         assert 0 < rep[f"{key}_utilization"] < 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("curve", sorted(CURVES))
+@pytest.mark.parametrize("form", ["dbl", "add_warp", "dbl_warp"])
+def test_chain_forms_match_plain_on_card(form, curve, cuda_device):
+    """The chain kernel's dedicated doubling on a group of 4 lanes and its
+    add and doubling on a warp (the lone chains' layout) over 300 points
+    (the last block of warps partly past them), 4 steps: bit-exact
+    against the plain version, one launch a call, of the curve's build;
+    `chain_latency` gives a positive time for every step."""
+    from bulletproofs_tpu_torch.utils import roofline as R
+    cv = CURVES[curve]
+    ctx = E.CurveCtx(cv)
+    x = R.chain_points(ctx, 300, seed=12, device=cuda_device)
+    ek.reset_launches()
+    got = R.ec_chain(x, 4, form, ctx)
+    torch.cuda.synchronize()
+    assert ek.launches["chain"] == 1
+    assert ek.a_nonzero_launches["chain"] == _a_nonzero(cv, 1)
+    assert torch.equal(got, R.ec_chain_plain(x, 4, form, ctx))
+    lat = R.chain_latency(ctx, iters=4, device=cuda_device, warm=1, reps=1)
+    assert set(lat["us"]) == {"mont_mul", *R.CHAIN_FORMS}
+    assert all(t > 0 for t in lat["us"].values())
 
 
 @pytest.mark.cuda

@@ -3,17 +3,20 @@ ec_lanes.cuh and ec_common.cuh, and csrc/roofline_kernels.cu) built by the
 host's g++ against a small CUDA stand-in and held against the plain
 PyTorch versions on the CPU, where there is no card.
 
-The stand-in runs each warp's 32 lanes as threads, with the warp
-shuffles, ballots and votes the lane-cooperative functions use (a barrier
-a call), `blockIdx` and `blockDim`, and the PTX carry chains of carry.cuh
-as C++ on a per-lane carry flag; the launches `<<<grid, block, 0, st>>>`
-become calls that run the grid's warps one after another.  So the
-kernels' arithmetic and control flow run here as written: RCB16
+The stand-in runs each block's threads at once, each warp's 32 lanes
+with the warp shuffles (within groups and across the whole warp), ballots
+and votes the lane-cooperative functions use (a barrier of the warp a
+call), `__syncthreads` (a barrier of the block) and `__shared__` arrays
+(the block's: blocks run one after another), `blockIdx` and `blockDim`,
+and the PTX carry chains of carry.cuh as C++ on a per-lane carry flag;
+the launches `<<<grid, block, 0, st>>>` become calls that run the grid.
+So the kernels' arithmetic and control flow run here as written: RCB16
 algorithm 1 (a != 0, ed25519) in kernels 2, 3 (pairwise and every
 sequential form) and 4 and in the chain kernel, which a card runs only in
 a chip call, and, beside it, the a = 0 forms the card has run (BN254),
-which hold the stand-in to the card's results.  Every comparison is
-exact.
+which hold the stand-in to the card's results; and the lone chains'
+layout (a warp a chain, RCB16's dedicated doubling, the window totals'
+4 warps a window) on both.  Every comparison is exact.
 """
 
 import random
@@ -40,6 +43,7 @@ _RUNTIME = r"""
 #pragma once
 #include <barrier>
 #include <cstdint>
+#include <memory>
 #include <thread>
 #include <vector>
 #define __device__
@@ -53,19 +57,26 @@ inline thread_local Dim3 threadIdx, blockIdx, blockDim;
 typedef void* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
-inline std::barrier<>* warp_barrier;
-inline unsigned long long warp_slots[2][32];
+#define __shared__ static
+// A warp's barrier and its two sets of exchange slots.
+struct WarpState {
+    std::barrier<>* bar;
+    unsigned long long slots[2][32];
+};
+inline thread_local WarpState* warp_state;
 inline thread_local int warp_parity;
+inline std::barrier<>* block_barrier;
 inline int lane_id() { return threadIdx.x & 31; }
 // Every lane's v once the whole warp wrote it.  Two sets of slots,
 // alternating: a lane past this call's barrier writes the other set next,
 // which no lane still reads.
 inline unsigned long long* exchange(unsigned long long v) {
-    unsigned long long* slots = warp_slots[warp_parity ^= 1];
+    unsigned long long* slots = warp_state->slots[warp_parity ^= 1];
     slots[lane_id()] = v;
-    warp_barrier->arrive_and_wait();
+    warp_state->bar->arrive_and_wait();
     return slots;
 }
+inline void __syncthreads() { block_barrier->arrive_and_wait(); }
 inline uint32_t __shfl_sync(unsigned, uint32_t v, int src, int w = 32) {
     const int l = lane_id();
     return (uint32_t)exchange(v)[(l & ~(w - 1)) + (src & (w - 1))];
@@ -90,23 +101,31 @@ inline uint32_t __ballot_sync(unsigned, int p) {
 }
 inline int __any_sync(unsigned m, int p) { return __ballot_sync(m, p) != 0; }
 inline int __clz(int x) { return x ? __builtin_clz(x) : 32; }
+// The grid's blocks one after another, each block's threads all at once
+// (`__syncthreads` and the shared arrays are the block's).
 template <class... P, class... A>
 void run_grid(void (*kernel)(P...), unsigned grid, int block, A... args) {
-    for (unsigned b = 0; b < grid; b++)
-        for (int w = 0; w < block / 32; w++) {
-            std::barrier<> bar(32);
-            warp_barrier = &bar;
-            std::vector<std::thread> lanes;
-            for (int l = 0; l < 32; l++)
-                lanes.emplace_back([&, l] {
-                    blockIdx.x = b;
-                    blockDim.x = block;
-                    threadIdx.x = w * 32 + l;
-                    warp_parity = 0;
-                    kernel(args...);
-                });
-            for (auto& t : lanes) t.join();
+    for (unsigned b = 0; b < grid; b++) {
+        std::barrier<> bb(block);
+        block_barrier = &bb;
+        std::vector<std::unique_ptr<std::barrier<>>> bars;
+        std::vector<WarpState> warps(block / 32);
+        for (auto& w : warps) {
+            bars.push_back(std::make_unique<std::barrier<>>(32));
+            w.bar = bars.back().get();
         }
+        std::vector<std::thread> threads;
+        for (int t = 0; t < block; t++)
+            threads.emplace_back([&, t] {
+                blockIdx.x = b;
+                blockDim.x = block;
+                threadIdx.x = t;
+                warp_state = &warps[t / 32];
+                warp_parity = 0;
+                kernel(args...);
+            });
+        for (auto& t : threads) t.join();
+    }
 }
 """
 
@@ -211,13 +230,18 @@ int main() {
             std::vector<uint32_t> out(3 * nl * v[0]);
             put(bp_ec_horner(out.data(), t.data(), v[0], v[1], v[2], nl,
                              c.data(), nullptr), out);
-        } else if (o == "chain_add" || o == "chain_mul") {  // n iters nl
+        } else if (o == "chain") {                    // n iters form nl
+            const int nl = ints(v, 4);
+            auto x = arr(), c = arr();
+            std::vector<uint32_t> out(x.size());
+            put(bp_ec_chain(out.data(), x.data(), v[0], v[1], v[2], nl,
+                            c.data(), nullptr), out);
+        } else if (o == "chain_mul") {                // n iters nl
             const int nl = ints(v, 3);
             auto x = arr(), c = arr();
             std::vector<uint32_t> out(x.size());
-            put((o == "chain_add" ? bp_ec_add_chain : bp_mont_mul_chain)(
-                    out.data(), x.data(), v[0], v[1], nl, c.data(),
-                    nullptr), out);
+            put(bp_mont_mul_chain(out.data(), x.data(), v[0], v[1], nl,
+                                  c.data(), nullptr), out);
         } else {
             return 3;
         }
@@ -244,7 +268,7 @@ def emulator(tmp_path_factory):
         (d / header).write_text((CSRC / header).read_text())
     src = '#include "ec_lanes.cuh"\n'
     for name, launches in (("ec_kernels.cu", 7), ("roofline_kernels.cu",
-                                                  2)):
+                                                  5)):
         text = (CSRC / name).read_text()
         text = re.sub(r'#include "ec_(common|lanes)\.cuh"', "", text)
         text, n = re.subn(
@@ -381,7 +405,57 @@ def test_kernel_source_matches_plain_on_an_emulated_warp(emulator, curve,
             ctx, S, seed=9, device="cpu")
         want = getattr(R, f"{'ec_add' if op == 'add' else 'mont_mul'}"
                           "_chain")(x, 3, ctx)
-        got = emulator(form, [S, 3, nl], x, consts)
+        got = (emulator("chain", [S, 3, 0, nl], x, consts) if op == "add"
+               else emulator(form, [S, 3, nl], x, consts))
+    rc, words = got
+    assert rc == 0
+    np.testing.assert_array_equal(words.view(np.int32),
+                                  want.reshape(-1).numpy())
+
+
+LONE = ["totals_c8", "totals_c5", "horner_c8", "horner_top_identity",
+        "chain_dbl", "chain_add_warp", "chain_dbl_warp"]
+
+
+@pytest.mark.parametrize("curve", ["bn254", "ed25519"])
+@pytest.mark.parametrize("form", LONE)
+def test_lone_chains_match_plain_on_an_emulated_warp(emulator, curve, form):
+    """The lone chains' layout, a warp a chain (`WarpLevels`: one product
+    a group of 4 lanes, results passed by full-width shuffles) with RCB16's
+    dedicated doubling (`ec_dbl_l`, algorithm 9; algorithm 3 for ed25519),
+    bit-exact against the plain versions, which double by the complete
+    add: the window totals at the c = 8 combine's G = K = 16 and 4
+    doublings (4 warps a window, shared memory and a block barrier a step)
+    over 2 windows, and at c = 5's G = 8, K = 4 (the columns' chains end
+    first) over 1; the Horner at c = 8 over 2 sets of 3 windows, and with
+    the first set's top window total the identity (its opening doublings
+    skipped); the chain kernel's doubling on a group of 4 lanes and its
+    add and doubling on a warp, over 5 points (the second block of warps
+    partly past them), 3 steps."""
+    cv = config.CURVES[curve]
+    ctx, consts, points, _ = _inputs(cv, 11)
+    nl = ctx.fp.L // 2
+    if form.startswith("totals"):
+        W, G, K, dbl = (2, 16, 16, 4) if form == "totals_c8" else \
+            (1, 8, 4, 2)
+        rowsum = points(W * G).reshape(3, nl, W, G).contiguous()
+        colsum = points(W * K).reshape(3, nl, W, K).contiguous()
+        want = ek.ec_window_totals_plain(rowsum, colsum, dbl, ctx)
+        got = emulator("totals", [W, G, K, dbl, nl], rowsum, colsum,
+                       consts)
+    elif form.startswith("horner"):
+        totals = points(6)
+        totals[:, :, 0] = totals[:, :, 1]     # a doubling in the chain
+        if form == "horner_top_identity":
+            totals[:, :, 2] = ek.packed_identity(ctx, (1,), "cpu")[:, :, 0]
+        want = ek.ec_horner_plain(totals, 3, 8, ctx)
+        got = emulator("horner", [2, 3, 8, nl], totals, consts)
+    else:
+        chain = form.split("_", 1)[1]
+        x = R.chain_points(ctx, 5, seed=9, device="cpu")
+        want = R.ec_chain_plain(x, 3, chain, ctx)
+        got = emulator("chain", [5, 3, R.CHAIN_FORMS.index(chain), nl], x,
+                       consts)
     rc, words = got
     assert rc == 0
     np.testing.assert_array_equal(words.view(np.int32),

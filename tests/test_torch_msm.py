@@ -372,13 +372,15 @@ def test_chip_smoke_phases_rehearse_on_cpu(capsys):
     assert phases["msm_uniform"]["pre_reduce"] == 0
 
 
-@pytest.mark.parametrize("curve", ["bls381", "bn254"])
+@pytest.mark.parametrize("curve", ["bls381", "bn254", "secp256k1",
+                                   "ed25519"])
 def test_combine_matches_jax(curve):
     """`bucket_rowcol`, `window_totals` and `combine_from_rowcol` (packed
     words, kernel 3's sequential forms, their plain versions on the CPU)
     equal the JAX package's (`bulletproofs_tpu/ops/msm.py:518-570`) limb
-    for limb from the same bucket array: W = 4 windows of c = 4, one
-    bucket in 5 the identity, the Horner over 2 sets of 2 windows."""
+    for limb from the same bucket array, on every curve (ed25519: RCB16
+    algorithm 1): W = 4 windows of c = 4, one bucket in 5 the identity,
+    the Horner over 2 sets of 2 windows."""
     cv, jcv = config.CURVES[curve], jconfig.CURVES[curve]
     ctx, jctx = E.CurveCtx(cv), ej.CurveCtx(jcv)
     c, W, B = 4, 4, 16

@@ -31,7 +31,7 @@ from bulletproofs_tpu_torch import config
 from bulletproofs_tpu_torch.models import bound_check
 from bulletproofs_tpu_torch.ops import ec as E
 from bulletproofs_tpu_torch.ops import ec_kernels as ek
-from bulletproofs_tpu_torch.ops.field import limbs_to_ints, unpack32
+from bulletproofs_tpu_torch.ops.field import limbs_to_ints, pack32, unpack32
 from bulletproofs_tpu_torch.utils import metrics as metrics_mod
 from bulletproofs_tpu_torch.utils import roofline as R
 
@@ -195,3 +195,29 @@ def test_roofline_report_needs_a_card():
     with pytest.raises(ValueError):
         R.roofline_report(E.CurveCtx(config.BLS381), batch=8, iters=1,
                           device="cpu")
+
+
+def test_chain_forms_and_latency_on_cpu():
+    """The chain kernel's group-law forms on the CPU (their plain
+    versions): the warp add is the add, the doubling forms on points of
+    the curve are the complete add of the point to itself (RCB16's
+    dedicated doubling, 8 products for a = 0 and 17 for ed25519); an
+    unknown form is refused, and the latency line measures a card only."""
+    for name, cv in config.CURVES.items():
+        ctx = E.CurveCtx(cv)
+        assert R.mont_muls_per_dbl(ctx) == (17 if name == "ed25519" else 8)
+        rnd = random.Random(3)
+        P32 = pack32(E.to_device_points([bt.G1.random(rnd, cv)
+                                         for _ in range(3)], ctx, "cpu"), 1)
+        assert torch.equal(R.ec_chain(P32, 2, "add_warp", ctx),
+                           R.ec_add_chain(P32, 2, ctx))
+        want = unpack32(P32, 1)
+        for _ in range(2):
+            want = E.ec_add(want, want, ctx)
+        for form in ("dbl", "dbl_warp"):
+            assert torch.equal(unpack32(R.ec_chain(P32, 2, form, ctx), 1),
+                               want)
+    with pytest.raises(ValueError):
+        R.ec_chain(P32, 1, "triple", ctx)
+    with pytest.raises(ValueError):
+        R.chain_latency(ctx, iters=1, device="cpu")
