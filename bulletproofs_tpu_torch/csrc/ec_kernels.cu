@@ -15,11 +15,16 @@
 // package runs as `fori_loop`s over `ec_add` (bulletproofs_tpu/ops/msm.py
 // `_axis_sum`, `_running_weighted_sum`, `window_totals`,
 // `combine_from_rowcol`, `fold_split_buckets`, `_fold_dup_rows`):
-//   bp_ec_gather_sum        the axis sums and the two folds, a group of 4
-//                           lanes an output
+//   bp_ec_gather_sum        the axis sums and the two folds, 4 groups of
+//                           4 lanes an output
 //   bp_ec_window_totals     the weighted running sums, doublings and add,
 //                           a warp a chain, 4 chains a window at once
 //   bp_ec_horner            the window Horner over the sets, a warp a set
+//   bp_ec_pre_reduce        one pass of the MSM's same-bucket merging
+//                           (`_pre_reduce_rows`; the JAX package's pass
+//                           loop over `ec_add` in `bucket_accumulate`),
+//                           in place on kernel 2's table, an add only
+//                           where two entries merge
 // The last two double by RCB16's dedicated doubling where the JAX package
 // adds a point to itself (`ec_double` = `ec_add(P, P)`): on the curve the
 // same triple, word for word (ec_lanes.cuh `ec_dbl_l`).
@@ -53,11 +58,11 @@
 // latency of each thread's chain of dependent instructions limits it, not
 // the IMAD pipe.
 //
-// The bucket kernels and the gather-sum form therefore give each slot or
-// output a group of kLanes = 4 threads that share its field products
-// (ec_lanes.cuh): 8448 slots make 8 warps an SM, each lane holds 3 words of
-// a BLS12-381 element instead of 12 (68 registers against 188-218 for
-// kernel 1), and a chain of adds runs ~4x faster.  The lanes shuffle over
+// The bucket kernels therefore give each slot a group of kLanes = 4
+// threads (the gather-sum form 4 such groups an output, below) that share
+// its field products (ec_lanes.cuh): 8448 slots make 8 warps an SM, each
+// lane holds 3 words of a BLS12-381 element instead of 12 (68 registers
+// against 188-218 for kernel 1), and a chain of adds runs ~4x faster.  The lanes shuffle over
 // the whole warp, so the kernels keep warp-uniform control flow: an empty
 // slot or a padded column is computed with the others and dropped by a
 // select, or (kernels 2 and 4) adds the identity row.  On an NVIDIA H100
@@ -81,7 +86,22 @@
 // take RCB16's dedicated doubling (`ec_dbl_l`: algorithm 9, 8 products in
 // 2 levels; algorithm 3 for a != 0), and the window totals run their 4
 // chains (rows' and columns' running sums and totals) on 4 warps at once.
-// The gather-sum form keeps one group an output: it has thousands.
+// The row and column sums are chains of 16 adds (c = 8) over 1024-3072
+// outputs: one group an output left the card nearly empty and paid an
+// add's latency on 4 lanes 16 times, so the gather-sum form runs 4 groups
+// an output, 2 of each add's 6 products at once on each (`SplitLevels`;
+// on an NVIDIA H100 as fast as a warp an output at 1024 outputs and 0.71x
+// its time at 2048, where a warp an output runs out of issue slots), the
+// next column loaded during the add.  The folds (tens of thousands of
+// outputs of 2 columns, or 8 on ed25519) run the same layout: there it
+// ties one group an output, or beats it (PERF.md section 6).
+// The pre-reduction's passes add a pair only where two entries of one
+// bucket merge: from ~W*n/2 adds in the first pass to a few hundred in
+// the last, and for the bit vector (one window of nonzero digits in 33)
+// a small share of the table.  Each warp takes a tile of 32 entries, finds
+// the merging ones by a ballot and adds them 8 at a time, one a group; the
+// first pass also writes the whole table from the points by id, so the
+// table is written once (311 MB at n = 2^16, its bound).
 
 #include "ec_common.cuh"
 #include "ec_lanes.cuh"
@@ -104,7 +124,9 @@ constexpr Fields kBuilt = Fields::kGeneralA;
 constexpr Fields kBuilt = Fields::kA0;
 #endif
 
-constexpr int kSumBlock = 64;               // of the gather-sum form
+constexpr int kSumGroups = 4;               // groups of 4 lanes an output
+constexpr int kSumBlock = 4 * 32;           // of the gather-sum form
+constexpr int kPreBlock = 4 * 32;           // of the pre-reduction form
 
 // out, acc (3, NL, S); table (n, 2NL) affine rows; ids, found (R_c, S),
 // round-major.  A group of kLanes lanes per slot loops over the R_c rounds
@@ -211,7 +233,13 @@ ec_add_kernel(uint32_t* out, const uint32_t* P, const uint32_t* Q,
 // (3, NL, ncols) added left to right, -1 entries skipped.  The chain starts
 // from the identity when from_identity (identity + P[first] + ...), else
 // from the first listed column itself; a row with no column gives the
-// identity.  One group per output.
+// identity.  kSumGroups = 4 groups of 4 lanes an output (half a warp, 2
+// outputs a warp): each add's levels of 6 products spread over the
+// output's groups, 2 products at once on each (`SplitLevels`: `ec_add_lv`,
+// the same words as `ec_add_l`), the next column's point loaded while the
+// add runs.  A warp's outputs have their own column lists, so the loop
+// runs every column for the whole warp and keeps each result by a select
+// (a warp runs the add when any of its outputs adds).
 template <int NL, bool GA>
 __global__ void __launch_bounds__(kSumBlock)
 ec_gather_sum_kernel(uint32_t* out, const uint32_t* P, const int32_t* idx,
@@ -220,30 +248,130 @@ ec_gather_sum_kernel(uint32_t* out, const uint32_t* P, const int32_t* idx,
                      const __grid_constant__ CurveA<NL> ca) {
     constexpr int K = NL / kLanes;
     const Lanes ln;
-    bool mine;
-    const long long o = group_index(n_out, mine);
+    const SplitLevels<NL, kSumGroups> lv;
     const FieldL<NL> fl = field_l<NL, GA>(f, ca, ln.j);
-    uint32_t X[K], Y[K], Z[K], sX[K], sY[K], sZ[K], x2[K], y2[K], z2[K];
+    const long long t = ((long long)blockIdx.x * blockDim.x + threadIdx.x)
+                        / (kSumGroups * kLanes);
+    const bool mine = t < n_out;
+    const long long o = mine ? t : n_out - 1;
+    const int32_t* row = idx + (size_t)o * m;
+    uint32_t X[K], Y[K], Z[K], sX[K], sY[K], sZ[K];
+    uint32_t x2[K], y2[K], z2[K], x3[K], y3[K], z3[K];
     identity_l<NL>(X, Y, Z, fl);
     bool started = from_identity != 0;
+    int next = row[0];
+    load_point_l<NL>(x3, y3, z3, P, (size_t)ncols,
+                     (size_t)(next >= 0 ? next : 0), ln.j);
     for (int j = 0; j < m; j++) {
-        const int id = idx[(size_t)o * m + j];
+        const int id = next;
+        copy_point_l<NL>(x2, y2, z2, x3, y3, z3);
+        if (j + 1 < m) {
+            next = row[j + 1];
+            load_point_l<NL>(x3, y3, z3, P, (size_t)ncols,
+                             (size_t)(next >= 0 ? next : 0), ln.j);
+        }
         const bool take = mine && id >= 0;
-        // the first column is taken as it is; later ones are added (a
-        // warp runs the add when any of its groups adds)
         const bool adds = take && started;
         if (!warp_needs(take)) continue;
-        load_point_l<NL>(x2, y2, z2, P, (size_t)ncols,
-                            (size_t)(take ? id : 0), ln.j);
         if (warp_needs(adds)) {
             copy_point_l<NL>(sX, sY, sZ, X, Y, Z);
-            ec_add_l<NL, GA>(sX, sY, sZ, x2, y2, z2, fl, ln);
+            ec_add_lv<NL, GA>(sX, sY, sZ, x2, y2, z2, fl, ln, lv);
             select_point_l<NL>(X, Y, Z, !adds, sX, sY, sZ);
         }
         select_point_l<NL>(X, Y, Z, !(take && !started), x2, y2, z2);
         started = started || take;
     }
-    if (mine) store_point_l<NL>(out, n_out, o, X, Y, Z, ln.j);
+    if (mine && (ln.base / kLanes) % kSumGroups == 0)
+        store_point_l<NL>(out, n_out, o, X, Y, Z, ln.j);
+}
+
+// One pass of the MSM's pre-reduction on kernel 2's table (W*n, 3NL), row
+// w*n + i the point at sorted position i of window w: row i += row
+// i + 2^pass (the complete add, in that operand order) where the entry
+// merges: its rank within its digit is a multiple of 2^(pass+1), its digit
+// is not 0 and the entry 2^pass places on in the window's row has the same
+// digit.  Every other row keeps its words.  Pass 0 also writes the table:
+// row w*n + i is row perm[w*n + i] of `rows` (n, 3NL), the points by id,
+// and its adds read their operands from `rows`; later passes run in place,
+// which is safe: no row i + 2^pass is written in a pass (its rank is 2^pass
+// mod 2^(pass+1)).  perm, digits, rank (W*n) int64, window-major.
+//
+// Only merging entries cost an add.  A warp takes a tile of 32 entries,
+// one a lane (pass 0 first copies the tile's 32 rows, 16 bytes a lane a
+// step), and ballots the merging ones (at most 16 a tile: a merging entry
+// and its partner are both in its run); then its 8 groups add them 8 at a
+// time, group g the g-th lowest left.  A group with none left adds the
+// first one's rows again and stores nothing (warp-uniform control flow); a
+// warp with none returns.
+template <int NL, bool GA>
+__global__ void __launch_bounds__(kPreBlock)
+ec_pre_reduce_kernel(uint32_t* table, const uint32_t* rows,
+                     const long long* perm, const long long* digits,
+                     const long long* rank, int W, int n, int pass,
+                     Field<NL> f, const __grid_constant__ CurveA<NL> ca) {
+    constexpr int K = NL / kLanes;
+    constexpr int kGroups = 32 / kLanes;
+    constexpr int kRow = 3 * NL;                 // words a row
+    constexpr int kVec = kRow / 4;               // 16-byte pieces a row
+    const long long entries = (long long)W * n;
+    const long long tile = ((long long)blockIdx.x * blockDim.x
+                            + threadIdx.x) & ~31ll;
+    const int lane = threadIdx.x & 31;
+    const long long i = tile + lane;
+    const int shift = 1 << pass;
+    if (pass == 0) {
+        for (int v = lane; v < 32 * kVec; v += 32) {
+            const long long e = tile + v / kVec;
+            if (e < entries)
+                reinterpret_cast<uint4*>(table + e * kRow)[v % kVec] =
+                    reinterpret_cast<const uint4*>(
+                        rows + perm[e] * kRow)[v % kVec];
+        }
+        __syncwarp();
+    }
+    bool merge = false;
+    if (i < entries) {
+        const long long d = digits[i];
+        merge = d != 0 && (rank[i] & (2 * shift - 1)) == 0
+                && (int)(i % n) + shift < n && digits[i + shift] == d;
+    }
+    uint32_t todo = __ballot_sync(kWarp, merge);
+    if (todo == 0) return;                       // the whole warp
+    const Lanes ln;
+    const FieldL<NL> fl = field_l<NL, GA>(f, ca, ln.j);
+    const int g = ln.base / kLanes;
+    while (todo != 0) {
+        uint32_t left = todo;
+        for (int k = 0; k < g; k++) left &= left - 1;
+        const bool live = left != 0;
+        const long long e = tile + __ffs(live ? left : todo) - 1;
+        const uint32_t* p1 = pass == 0 ? rows + perm[e] * kRow
+                                       : table + e * kRow;
+        const uint32_t* p2 = pass == 0 ? rows + perm[e + 1] * kRow
+                                       : table + (e + shift) * kRow;
+        uint32_t X[K], Y[K], Z[K], x2[K], y2[K], z2[K];
+#pragma unroll
+        for (int k = 0; k < K; k++) {
+            const int w = ln.j * K + k;
+            X[k] = p1[w];
+            Y[k] = p1[NL + w];
+            Z[k] = p1[2 * NL + w];
+            x2[k] = p2[w];
+            y2[k] = p2[NL + w];
+            z2[k] = p2[2 * NL + w];
+        }
+        ec_add_l<NL, GA>(X, Y, Z, x2, y2, z2, fl, ln);
+        if (live) {
+            uint32_t* out = table + e * kRow + ln.j * K;
+#pragma unroll
+            for (int k = 0; k < K; k++) {
+                out[k] = X[k];
+                out[NL + k] = Y[k];
+                out[2 * NL + k] = Z[k];
+            }
+        }
+        for (int k = 0; k < kGroups; k++) todo &= todo - 1;
+    }
 }
 
 // The lone chains' blocks: a warp a chain (`WarpLevels`).  The window
@@ -476,7 +604,8 @@ int BP_C_NAME(bp_ec_gather_sum)(
     void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (n_out <= 0 || m <= 0 || ncols <= 0) return (int)cudaErrorInvalidValue;
-    const unsigned grid = groups_grid(n_out, kSumBlock);
+    const unsigned grid = (unsigned)(((long long)n_out * kSumGroups * kLanes
+                                      + kSumBlock - 1) / kSumBlock);
     return launch_field<kBuilt>(nl, static_cast<const uint32_t*>(consts),
                         [&](auto f, auto ca, auto ga) {
         ec_gather_sum_kernel<decltype(f)::kWords, decltype(ga)::value>
@@ -484,6 +613,27 @@ int BP_C_NAME(bp_ec_gather_sum)(
                 static_cast<uint32_t*>(out), static_cast<const uint32_t*>(P),
                 static_cast<const int32_t*>(idx), n_out, m, ncols,
                 from_identity, f, ca);
+    });
+}
+
+int BP_C_NAME(bp_ec_pre_reduce)(
+    void* table, const void* rows, const void* perm, const void* digits,
+    const void* rank, int W, int n, int pass, int nl, const void* consts,
+    void* stream) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (W <= 0 || n <= 0 || pass < 0 || pass > 30)
+        return (int)cudaErrorInvalidValue;
+    const unsigned grid = (unsigned)(((long long)W * n + kPreBlock - 1)
+                                     / kPreBlock);
+    return launch_field<kBuilt>(nl, static_cast<const uint32_t*>(consts),
+                        [&](auto f, auto ca, auto ga) {
+        ec_pre_reduce_kernel<decltype(f)::kWords, decltype(ga)::value>
+            <<<grid, kPreBlock, 0, st>>>(
+                static_cast<uint32_t*>(table),
+                static_cast<const uint32_t*>(rows),
+                static_cast<const long long*>(perm),
+                static_cast<const long long*>(digits),
+                static_cast<const long long*>(rank), W, n, pass, f, ca);
     });
 }
 

@@ -283,6 +283,60 @@ __device__ __forceinline__ void mont_mul_l(uint32_t* r, const uint32_t* a,
     reduce_once_l<NL>(r, t, c, f, ln);
 }
 
+// M independent CIOS products at once on the calling group: r[j] =
+// a[j] * b[j] * R^-1 mod p (the lane's K words of each), each step of
+// `mont_mul_l` taken for all M before the next, so their shuffles and
+// multiply-adds overlap in one instruction stream.  The same arithmetic as
+// mont_mul_l, so the same words.
+template <int NL, int M, int K = NL / kLanes>
+__device__ __forceinline__ void mont_mul_m_l(uint32_t (&r)[M][K],
+                                             const uint32_t (&a)[M][K],
+                                             const uint32_t (&b)[M][K],
+                                             const FieldL<NL>& f,
+                                             const Lanes& ln) {
+    uint32_t t[M][K], s0[M], s1[M];
+#pragma unroll
+    for (int m = 0; m < M; m++) {
+#pragma unroll
+        for (int k = 0; k < K; k++) t[m][k] = 0u;
+        s0[m] = s1[m] = 0u;
+    }
+#pragma unroll
+    for (int i = 0; i < NL; i++) {
+        uint32_t x[M];
+#pragma unroll
+        for (int m = 0; m < M; m++) x[m] = ln.bcast(a[m][i % K], i / K);
+#pragma unroll
+        for (int m = 0; m < M; m++)
+            mac_row<K>(t[m], s0[m], s1[m], x[m], b[m]);
+#pragma unroll
+        for (int m = 0; m < M; m++) x[m] = ln.bcast(t[m][0] * f.n0inv, 0);
+#pragma unroll
+        for (int m = 0; m < M; m++)
+            mac_row<K>(t[m], s0[m], s1[m], x[m], f.p);
+#pragma unroll
+        for (int m = 0; m < M; m++) x[m] = ln.from_next(t[m][0]);
+#pragma unroll
+        for (int m = 0; m < M; m++) {
+#pragma unroll
+            for (int k = 0; k < K - 1; k++) t[m][k] = t[m][k + 1];
+            t[m][K - 1] = add_cc(x[m], s0[m]);
+            s0[m] = addc(s1[m], 0u);
+            s1[m] = 0u;
+        }
+    }
+#pragma unroll
+    for (int m = 0; m < M; m++) {
+        const uint32_t top = ln.bcast(s0[m], kLanes - 1);
+        t[m][0] = add_cc(t[m][0], ln.from_prev(s0[m]));
+#pragma unroll
+        for (int k = 1; k < K; k++) t[m][k] = addc_cc(t[m][k], 0u);
+        const uint32_t g = addc(0u, 0u);
+        const uint32_t c = carry_lanes<K>(t[m], g, ln) + top;
+        reduce_once_l<NL>(r[m], t[m], c, f, ln);
+    }
+}
+
 // a * k for a small constant k, by double-and-add of mod-adds.
 template <int NL>
 __device__ __forceinline__ void mul_small_l(uint32_t* r, const uint32_t* a,
@@ -590,7 +644,9 @@ __device__ __forceinline__ void proj_round_l(uint32_t* X, uint32_t* Y,
 //   WarpLevels   product i on group i of the warp, all at once, each result
 //                then passed to every group by full-width shuffles, so that
 //                the warp's 8 groups hold the same values: one chain a
-//                warp, a level taking one product's latency.
+//                warp, a level taking one product's latency (SplitLevels
+//                with G = 8; the gather-sum form's G = 4 puts 2 chains on
+//                a warp, a level taking 2 products at once on a group).
 // The adds, subtractions and small multiples between the levels run on
 // every group alike (warp-uniform control flow); their independent chains
 // overlap in the instruction stream.
@@ -609,41 +665,61 @@ struct GroupLevels {
     }
 };
 
-template <int NL>
-struct WarpLevels {
-    static constexpr int kGroups = 32 / kLanes;
+// Product i of a level on group i % G of the G groups (of 4 lanes) that
+// serve one chain, the ceil(N / G) products of each group at once
+// (`mont_mul_m_l`), then every result to all G groups by full-width
+// shuffles, so that they hold the same values.  G = 8 is the whole warp a
+// chain (`WarpLevels`), a level taking one product's latency; G = 4 (the
+// gather-sum form) serves 2 chains a warp, a level taking 2 products at
+// once.
+template <int NL, int G>
+struct SplitLevels {
+    static_assert(G == 4 || G == 8, "4 or 8 groups a chain");
 
     template <int N>
     __device__ __forceinline__ void operator()(
             uint32_t* const (&r)[N], const uint32_t* const (&a)[N],
             const uint32_t* const (&b)[N], const FieldL<NL>& f,
             const Lanes& ln) const {
-        static_assert(N <= kGroups, "a level takes one product a group");
         constexpr int K = NL / kLanes;
+        constexpr int M = (N + G - 1) / G;
         const int g = ln.base / kLanes;
-        uint32_t x[K], y[K], p[K];
+        const int q = g % G;                     // the group's place
+        const int first = (g - q) * kLanes;      // the chain's first lane
+        uint32_t x[M][K], y[M][K], p[M][K];
 #pragma unroll
-        for (int k = 0; k < K; k++) {
-            x[k] = a[0][k];
-            y[k] = b[0][k];
-        }
-#pragma unroll
-        for (int i = 1; i < N; i++) {
+        for (int m = 0; m < M; m++) {
+            // product m*G + q; a group past the level's last product
+            // computes product m*G again, and its result is not read
 #pragma unroll
             for (int k = 0; k < K; k++) {
-                x[k] = g == i ? a[i][k] : x[k];
-                y[k] = g == i ? b[i][k] : y[k];
+                x[m][k] = a[m * G][k];
+                y[m][k] = b[m * G][k];
+            }
+#pragma unroll
+            for (int c = 1; c < G; c++) {
+                if (m * G + c < N) {
+#pragma unroll
+                    for (int k = 0; k < K; k++) {
+                        x[m][k] = q == c ? a[m * G + c][k] : x[m][k];
+                        y[m][k] = q == c ? b[m * G + c][k] : y[m][k];
+                    }
+                }
             }
         }
-        mont_mul_l<NL>(p, x, y, f, ln);
+        mont_mul_m_l<NL, M>(p, x, y, f, ln);
 #pragma unroll
         for (int i = 0; i < N; i++) {
 #pragma unroll
             for (int k = 0; k < K; k++)
-                r[i][k] = __shfl_sync(kWarp, p[k], i * kLanes + ln.j);
+                r[i][k] = __shfl_sync(kWarp, p[i / G][k],
+                                      first + (i % G) * kLanes + ln.j);
         }
     }
 };
+
+template <int NL>
+using WarpLevels = SplitLevels<NL, 8>;
 
 // P1 += P2, complete: RCB16 algorithm 7 (a = 0) as 2 levels of 6
 // products, or algorithm 1 (GA) as 3 levels of 6.  The same field values

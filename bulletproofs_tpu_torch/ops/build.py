@@ -42,6 +42,7 @@ _EC_KERNELS = {
     "bp_ec_add": (_P, _P, _P, _LL, _I, _P, _P),
     "bp_bucket_round_add": (_P, _P, _P, _P, _P, _I, _I, _P, _P),
     "bp_ec_gather_sum": (_P, _P, _P, _I, _I, _LL, _I, _I, _P, _P),
+    "bp_ec_pre_reduce": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
     "bp_ec_window_totals": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
     "bp_ec_horner": (_P, _P, _I, _I, _I, _I, _P, _P),
 }

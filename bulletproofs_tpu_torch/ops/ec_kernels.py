@@ -12,9 +12,13 @@ their launch counts.
 
 Kernel 3 has, beside the pairwise `ec_add`, three sequential forms: the
 loops of complete adds that the MSM's combine runs (the JAX package's
-`fori_loop`s over `ec_add`), each in one launch, one group of threads per
-output: `ec_gather_sum` (axis sums and folds), `ec_window_totals` and
-`ec_horner`.
+`fori_loop`s over `ec_add`), each in one launch: `ec_gather_sum` (axis
+sums and folds, 4 groups of 4 lanes an output), `ec_window_totals` and
+`ec_horner` (a warp a chain);
+and the pre-reduction form `ec_pre_reduce`, the MSM's pass loop of
+pairwise same-bucket merges (the JAX package's loop over `ec_add` in
+`bucket_accumulate`), a launch a pass, an add only where two entries
+merge.
 
 The group law is RCB16's complete addition: algorithm 7 (algorithm 8 for
 kernel 1's mixed add) for a = 0 curves, and for ed25519, the one curve
@@ -65,7 +69,7 @@ launches = {"bucket_rounds_mixed": 0, "bucket_rounds_proj": 0, "ec_add": 0,
             "ipa_challenge": 0, "chain": 0}
 # kernel 3's launches by form (they sum to launches["ec_add"])
 form_launches = {"pairwise": 0, "gather_sum": 0, "window_totals": 0,
-                 "horner": 0}
+                 "horner": 0, "pre_reduce": 0}
 # the launches of the a != 0 builds (RCB16 algorithm 1), a part of the
 # counts above: by kernel, and kernel 3's also by form (`ec_add:<form>`)
 a_nonzero_launches = {"bucket_rounds_proj": 0, "ec_add": 0,
@@ -295,6 +299,20 @@ def ec_gather_sum32(out32, P32, idx, from_identity, ctx: CurveCtx):
             ctx=ctx)
 
 
+def ec_pre_reduce32(table32, rows32, perm, sorted_d, rank, p,
+                    ctx: CurveCtx):
+    """Pass p of kernel 3's pre-reduction form on CUDA operands, unchecked:
+    writes table32 (W*n, 3NL) from rows32 (n, 3NL) by perm in pass 0,
+    updates it in place after; perm, sorted_d, rank (W, n) int64,
+    contiguous."""
+    _require_card("ec_add", table32, rows32, perm, sorted_d, rank)
+    W, n = sorted_d.shape
+    _launch("bp_ec_pre_reduce", "ec_add", table32.data_ptr(),
+            rows32.data_ptr(), perm.data_ptr(), sorted_d.data_ptr(),
+            rank.data_ptr(), W, n, p, ctx.fp.L // 2,
+            _consts(ctx).ctypes.data, form="pre_reduce", ctx=ctx)
+
+
 def ec_window_totals32(out32, rowsum32, colsum32, dbl, ctx: CurveCtx):
     """Kernel 3's window-totals form on packed CUDA operands, unchecked:
     rowsum32 (3, NL, W, G), colsum32 (3, NL, W, K), out32 (3, NL, W)."""
@@ -444,7 +462,15 @@ def ec_gather_sum_plain(P32, idx, from_identity, ctx: CurveCtx):
 def ec_gather_sum(P32, idx, from_identity, ctx: CurveCtx):
     """Kernel 3's gather-sum form (`bp_ec_gather_sum`): one chain of
     complete adds per output, over a list of columns; see
-    `ec_gather_sum_plain`.  The MSM's axis sums and folds."""
+    `ec_gather_sum_plain`.  The MSM's axis sums and folds.  On the card
+    every shape runs one layout, 4 groups of 4 lanes an output, each add's
+    6 products 2 at once on each group (`SplitLevels`): ~2.5x less latency
+    an add than one group, and 2 outputs a warp, which keeps issue slots
+    for 2048 outputs where a warp an output runs short of them (NVIDIA
+    H100, BLS12-381, `scripts/pre_reduce_sums.py`: 0.0843 ms at 1024 x 16
+    and 0.1108 ms at 2048 x 16, against 0.0837 and 0.1565 for a warp an
+    output); on the folds' short chains it ties one group an output, or
+    beats it (PERF.md section 6)."""
     name = "ec_gather_sum"
     _require_packed(P32, ctx, name, ndim=3)
     if idx.dtype != torch.int32 or idx.ndim != 2:
@@ -458,6 +484,84 @@ def ec_gather_sum(P32, idx, from_identity, ctx: CurveCtx):
                       device=P32.device)
     ec_gather_sum32(out, P32, idx, from_identity, ctx)
     return out
+
+
+def _check_pre_reduce(name, rows32, perm, sorted_d, rank, passes, ctx):
+    if passes < 1:
+        raise ValueError(f"{name}: {passes} passes; the form runs 1 or more")
+    words = 3 * ctx.fp.L // 2
+    if rows32.dtype != torch.int32 or rows32.ndim != 2 \
+            or rows32.shape[1] != words:
+        raise ValueError(f"{name}: rows must be (n, {words}) int32, got "
+                         f"{tuple(rows32.shape)} {rows32.dtype}")
+    if sorted_d.ndim != 2 or perm.shape != sorted_d.shape \
+            or rank.shape != sorted_d.shape \
+            or sorted_d.shape[1] != rows32.shape[0]:
+        raise ValueError(f"{name}: perm {tuple(perm.shape)}, digits "
+                         f"{tuple(sorted_d.shape)} and rank "
+                         f"{tuple(rank.shape)} must be (W, n), n = "
+                         f"{rows32.shape[0]} rows")
+    _same_device(name, rows32, perm, sorted_d, rank)
+
+
+def _merging(sorted_d, rank, p):
+    """(W, n) bool: the entries pass p adds into -- rank a multiple of
+    2^(p+1), digit nonzero and equal to the digit 2^p places on in the
+    window's row (-1 past its end)."""
+    shift = 1 << p
+    d_next = torch.cat([sorted_d[:, shift:],
+                        torch.full_like(sorted_d[:, :shift], -1)], dim=1)
+    return ((rank & ((2 << p) - 1)) == 0) & (d_next == sorted_d) & \
+        (sorted_d != 0)
+
+
+def ec_pre_reduce_plain(rows32, perm, sorted_d, rank, passes,
+                        ctx: CurveCtx):
+    """rows32 (n, 3NL) packed projective rows (`proj_rows32`); perm,
+    sorted_d, rank (W, n): each window's digit-sorted order, its digits
+    and each entry's rank within its digit (`msm._sorted_ranks`) -> the
+    pre-reduced table (W*n, 3NL) int32, row w*n + i the point at sorted
+    position i of window w after `passes` passes: pass p sets
+    P[i] = P[i] + P[i + 2^p] (`ec.ec_add`, that operand order) for every
+    entry that merges (`_merging`), and leaves every other row as it is,
+    so a bucket's occupancy halves a pass.  The adds run on the merging
+    entries only; their words are those of the pass loop over all W*n
+    entries that keeps the sum where an entry merges."""
+    L = ctx.fp.L
+    table = rows32[perm.reshape(-1)]
+    for p in range(passes):
+        e = torch.nonzero(_merging(sorted_d, rank, p).reshape(-1)) \
+            .squeeze(1)
+        if not e.numel():
+            continue
+        P, Q = (unpack32(table[k], -1).reshape(-1, 3, L).permute(1, 2, 0)
+                for k in (e, e + (1 << p)))
+        table[e] = pack32(ec_add_plain(P, Q, ctx), 1).permute(2, 0, 1) \
+            .reshape(e.numel(), -1)
+    return table
+
+
+def ec_pre_reduce(rows32, perm, sorted_d, rank, passes, ctx: CurveCtx):
+    """Kernel 3's pre-reduction form (`bp_ec_pre_reduce`): the MSM's
+    `passes` passes of same-bucket merging; see `ec_pre_reduce_plain` for
+    the function and the operands.  On the card each pass is one launch
+    that adds only the merging pairs (a warp a tile of 32 entries, a
+    ballot finds them), the first also writing the table from `rows32` by
+    `perm`, the later ones in place; no host synchronisation."""
+    name = "ec_pre_reduce"
+    _check_pre_reduce(name, rows32, perm, sorted_d, rank, passes, ctx)
+    if not _on_card(rows32, name):
+        return ec_pre_reduce_plain(rows32, perm, sorted_d, rank, passes, ctx)
+    perm, sorted_d, rank = (x.to(torch.int64) for x in (perm, sorted_d,
+                                                        rank))
+    _require_contiguous(name, rows32, perm, sorted_d, rank)
+    if rows32.data_ptr() % 16:      # pass 0 copies rows 16 bytes at a time
+        raise ValueError(f"{name}: rows must start on a 16-byte boundary")
+    table = torch.empty((perm.numel(), rows32.shape[1]), dtype=torch.int32,
+                        device=rows32.device)
+    for p in range(passes):
+        ec_pre_reduce32(table, rows32, perm, sorted_d, rank, p, ctx)
+    return table
 
 
 def _weighted_sum_plain(arr, ctx):

@@ -44,10 +44,10 @@ from .ec import (CurveCtx, from_device_points, to_device_points_affine,
                  to_device_scalars)
 from .ec_host import G1
 from .ec_kernels import (affine_rows32, bucket_round_add,
-                         bucket_rounds_mixed, bucket_rounds_proj, ec_add,
-                         ec_gather_sum, ec_horner, ec_window_totals,
-                         packed_identity, proj_rows32)
-from .field import pack32, unpack32
+                         bucket_rounds_mixed, bucket_rounds_proj,
+                         ec_gather_sum, ec_horner, ec_pre_reduce,
+                         ec_window_totals, packed_identity, proj_rows32)
+from .field import unpack32
 
 # Rounds per bucket-kernel launch (the JAX package's BP_EC_CHUNK default).
 EC_CHUNK = 16
@@ -370,21 +370,10 @@ def _pre_reduce_rows(points, sorted_d, rank, perm, ctx, pre_reduce):
     on into every entry whose rank is a multiple of 2^(p+1), so a bucket's
     occupancy halves per pass.  Returns the merged per-window tables as
     kernel 2's packed table (W*n, 3NL) int32 (row w*n + i is sorted
-    position i of window w)."""
-    W, n = sorted_d.shape
-    P = pack32(points, 1)[:, :, perm]                # (3, NL, W, n)
-    nl = P.shape[1]
-    ident = packed_identity(ctx, (W, 1), points.device)
-    for p in range(pre_reduce):
-        shift = 1 << p
-        d_next = torch.cat([sorted_d[:, shift:],
-                            torch.full_like(sorted_d[:, :shift], -1)], dim=1)
-        P_next = torch.cat([P[..., shift:], ident.expand(3, nl, W, shift)],
-                           dim=-1)
-        mergeable = ((rank & ((2 << p) - 1)) == 0) & \
-            (d_next == sorted_d) & (sorted_d != 0)
-        P = torch.where(mergeable[None, None], ec_add(P, P_next, ctx), P)
-    return proj_rows32(P.reshape(3, nl, W * n))
+    position i of window w), from kernel 3's pre-reduction form
+    (`ec_pre_reduce`: a launch a pass, an add per merging pair)."""
+    return ec_pre_reduce(proj_rows32(points), perm, sorted_d, rank,
+                         pre_reduce, ctx)
 
 
 def uses_mixed(ctx: CurveCtx, affine, pre_reduce=0, ec_kernel="chunk"):
@@ -423,7 +412,7 @@ def bucket_accumulate(points, digits, ctx: CurveCtx, c: int, n_rounds,
 
     plan: (ranges, splits[, dup_plan]) from `window_plan`.
     pre_reduce: halving passes (`_pre_reduce_rows`) that tame degenerate
-    scalar distributions such as bit vectors, at W*n batched adds a pass;
+    scalar distributions such as bit vectors, an add per merging pair;
     the rounds then read the pre-reduced table.
     affine: the table has Z == 1 everywhere, so without pre-reduction the
     chunked rounds use the mixed-add kernel (`uses_mixed`).

@@ -36,6 +36,9 @@ Phases, each printing one JSON line with its seconds:
              sequential forms (the
              folds, row and column sums, window totals and Horner of the
              combine) at the range proof's and the MSM's combine shapes,
+             each gather-sum case in the layout its shape gets, and its
+             pre-reduction form at the bit-vector MSM's W x n entries and
+             passes (its bound counts the adds of the merging entries),
              the fused IPA's `bp_ipa_challenge` on a projective point
              and the identity from a transcript whose round crosses the
              STROBE rate, and the roofline's chain kernel (both forms, 100
@@ -47,8 +50,9 @@ Phases, each printing one JSON line with its seconds:
              form's clock64() stamps, `tk.SPLIT`);
              after the paths, the bucket kernel and the combine's forms
              again at the shapes of each MSM that phase 7 ran (`kernels_at`:
-             kernel 2 at the witness's and the IPA's pre-reduced tables,
-             kernel 1 at the verifier's);
+             kernel 2 at the witness's and the IPA's pre-reduced tables and
+             the pre-reduction form at their entries and passes, kernel 1
+             at the verifier's);
   3 msm_uniform    n random-scalar MSM (the bench's input: 256 base points
                    repeated) through `msm_hybrid`, 1 + 3 runs, and through
                    `msm_device` (the path of the public `msm`), 1 + 3 runs,
@@ -163,7 +167,10 @@ Phases, each printing one JSON line with its seconds:
              10, 8, 12, 13, 14), kernel 3's also by form, each split by
              build (a = 0, and a != 0 under `<kernel>:a!=0`), each build
              of a kernel a path runs (and each form of kernel 3, `PATHS`)
-             required > 0 there, and the counts of one range proof and
+             required > 0 there, pairwise kernel 3 required 0 on the paths
+             whose pairwise adds were all pre-reduction passes (`NOT_ON_PATH`:
+             the MSMs, the SMT-4 proofs, the gadgets), and the counts of
+             one range proof and
              verification, one IPA proof and verification, one fused and
              one per-round IPA proof, one SMT-4 proof and verification, one
              batch check, each gadget's proof and verification, one sharded
@@ -261,7 +268,7 @@ SOURCES["chain"] = "bulletproofs_tpu_torch/csrc/roofline_kernels.cu"
 # round and its MSMs end in the host Horner.
 _FUSED_IPA = ("ec_add:horner", "ipa_challenge")
 PATHS = {
-    "msm": ("bucket_rounds_mixed", "bucket_rounds_proj", "ec_add:pairwise",
+    "msm": ("bucket_rounds_mixed", "bucket_rounds_proj", "ec_add:pre_reduce",
             "ec_add:gather_sum", "ec_add:window_totals", "ec_add:horner"),
     "ipa": ("bucket_rounds_mixed", "bucket_round_add", "ec_add:gather_sum",
             "ec_add:window_totals") + _FUSED_IPA,
@@ -269,38 +276,44 @@ PATHS = {
                   "ec_add:window_totals") + _FUSED_IPA,
     "r1cs": ("bucket_rounds_mixed", "ec_add:pairwise", "ec_add:gather_sum",
              "ec_add:window_totals") + _FUSED_IPA,
-    "smt": ("bucket_rounds_mixed", "bucket_rounds_proj", "ec_add:pairwise",
+    "smt": ("bucket_rounds_mixed", "bucket_rounds_proj", "ec_add:pre_reduce",
             "ec_add:gather_sum", "ec_add:window_totals") + _FUSED_IPA,
     "batch": ("bucket_rounds_mixed", "bucket_rounds_proj", "ec_add:pairwise",
               "ec_add:gather_sum", "ec_add:window_totals") + _FUSED_IPA,
     "gadgets": ("bucket_rounds_mixed", "bucket_rounds_proj",
-                "ec_add:pairwise", "ec_add:gather_sum",
+                "ec_add:pre_reduce", "ec_add:gather_sum",
                 "ec_add:window_totals") + _FUSED_IPA,
     "mxu_race": ("bucket_round_add_mxu", "bucket_round_add"),
     "sharded": ("bucket_rounds_mixed", "bucket_rounds_proj",
-                "ec_add:pairwise", "ec_add:gather_sum",
+                "ec_add:pairwise", "ec_add:pre_reduce", "ec_add:gather_sum",
                 "ec_add:window_totals"),
     # a != 0, the a != 0 builds (`:a!=0`): every bucket pass on kernel 2
     # (kernel 4 for the IPA's per-round kernel form), the IPA per round
     # (Edwards transcripts)
     "ed25519": tuple(f"{k}:a!=0" for k in (
         "bucket_rounds_proj", "bucket_round_add", "ec_add:pairwise",
-        "ec_add:gather_sum", "ec_add:window_totals", "ec_add:horner")),
+        "ec_add:pre_reduce", "ec_add:gather_sum", "ec_add:window_totals",
+        "ec_add:horner")),
     # BLS12-381's chain (its mont_mul form also on ed25519, whose product
     # runs the a = 0 build of its width) and ed25519's add chain
     "roofline": ("chain", "chain:a!=0"),
 }
 # kernels a path must never launch: kernel 1 and `bp_ipa_challenge` take
-# no a != 0 / Edwards curve, and no a = 0 build runs an ed25519 add
+# no a != 0 / Edwards curve, and no a = 0 build runs an ed25519 add; the
+# paths whose only pairwise adds were the pre-reduction's passes run none
+# (the pre-reduction form took them)
 NOT_ON_PATH = {"ed25519": ("bucket_rounds_mixed", "bucket_round_add_mxu",
                            "ipa_challenge", "bucket_rounds_proj",
-                           "bucket_round_add", "ec_add", "chain")}
+                           "bucket_round_add", "ec_add", "chain"),
+               **{path: ("ec_add:pairwise",)
+                  for path in ("msm", "smt", "gadgets")}}
 # each wrapper's kernel functions, as ptxas names them (`build.ptxas_summary`)
 KERNEL_FUNCTIONS = {
     "bucket_rounds_proj": ("bucket_rounds_proj_kernel",),
     "bucket_round_add": ("bucket_round_add_kernel",),
     "ec_add": ("ec_add_kernel", "ec_gather_sum_kernel",
-               "ec_window_totals_kernel", "ec_horner_kernel"),
+               "ec_window_totals_kernel", "ec_horner_kernel",
+               "ec_pre_reduce_kernel"),
     "chain": ("ec_add_chain_kernel", "ec_dbl_chain_kernel",
               "warp_add_chain_kernel", "warp_dbl_chain_kernel",
               "mont_mul_chain_kernel"),
@@ -308,7 +321,7 @@ KERNEL_FUNCTIONS = {
 # kernel 3's forms in phase 2 -> the kernel form each launches
 FORM_KERNEL = {"split_fold": "gather_sum", "dup_fold": "gather_sum",
                "rowcol": "gather_sum", "window_totals": "window_totals",
-               "horner": "horner"}
+               "horner": "horner", "pre_reduce": "pre_reduce"}
 N_BASE = 256
 # The JAX package's config-2 proof digest (seed 2), made by
 # tests/test_torch_r1cs.py::test_agg16_reference_digest
@@ -646,6 +659,8 @@ def phase_kernels(device, n, seed, reps=5, r1cs_msm_n=4098, cv=None):
     cases += form_cases(ctx, proj, gen, device, [
         ("r1cs", combine_shapes(r1cs_msm_n, 2, ctx=ctx)),
         ("msm", combine_shapes(n, 1, horner=True, ctx=ctx))])
+    cases.append(pre_reduce_case(ctx, proj, gen, device, "msm",
+                                 *bitvector_pre_reduce(ctx, n, gen)))
     cases += chain_cases(ctx, min(n, ROOFLINE_BATCH), device)
     if a0:
         cases.append(challenge_case(ctx, proj[:, :, :1], device))
@@ -743,11 +758,12 @@ def phase_kernels(device, n, seed, reps=5, r1cs_msm_n=4098, cv=None):
         pre-reduced, or from a projective
         table of `points` rows where its table is not affine, else kernel 1
         from an affine table of `points` rows; the combine's forms at its
-        shapes (Horner where the MSM ran it on the card), each form shape
-        once in the run (`form_key`); for a sharded pass also kernel 3
-        pairwise on packed points at the butterfly's W'*B and, where it
-        pre-reduced, the pre-reduction's W'*points, each count once.  Into
-        `records` under `other_shapes` and `forms`."""
+        shapes (Horner where the MSM ran it on the card) and, where it
+        pre-reduced, the pre-reduction form over W' x points entries with
+        its passes (`pre_reduce_digits`), each form shape once in the run
+        (`form_key`); for a sharded pass also kernel 3 pairwise on packed
+        points at the butterfly's W'*B, once.  Into `records` under
+        `other_shapes` and `forms`."""
         t1 = time.time()
         for points, sets, c_k, rounds, pre, *more in msms:
             affine_msm, horner, dup = (*more,
@@ -771,23 +787,24 @@ def phase_kernels(device, n, seed, reps=5, r1cs_msm_n=4098, cv=None):
                   {"path": path, "points": points, "sets": sets, "S": S_k,
                    "R_c": R_k, "pre": pre, "table_rows": rows,
                    "affine": affine_msm, "dup": dup})
-            for case in form_cases(ctx, proj, gen, device, [(path, sh)]):
+            cases_k = form_cases(ctx, proj, gen, device, [(path, sh)])
+            if pre:
+                cases_k.append(pre_reduce_case(
+                    ctx, proj, gen, device, path,
+                    pre_reduce_digits(sh["W_rows"], points, gen), pre))
+            for case in cases_k:
                 if form_key(case[-1]) not in forms_seen:
                     forms_seen.add(form_key(case[-1]))
                     check(*case)
-            if dup:
+            if dup or ("pairwise", S_k) in forms_seen:
                 continue
-            for n_k in (S_k, rows if pre else None):
-                if n_k is None or ("pairwise", n_k) in forms_seen:
-                    continue
-                forms_seen.add(("pairwise", n_k))
-                P32, Q32 = (packed(proj[:, :, torch.randint(
-                    0, m, (n_k,), generator=gen).to(device)])
-                    for _ in range(2))
-                check("ec_add", ek.ec_add, packed_add_plain, (P32, Q32),
-                      lambda args: lambda: ek.ec_add32(*args, ctx),
-                      (3 * pt_words * n_k * w32, n_k * per_add * imad),
-                      {"path": path, "n": n_k, "packed": True})
+            forms_seen.add(("pairwise", S_k))
+            P32, Q32 = (packed(proj[:, :, torch.randint(
+                0, m, (S_k,), generator=gen).to(device)]) for _ in range(2))
+            check("ec_add", ek.ec_add, packed_add_plain, (P32, Q32),
+                  lambda args: lambda: ek.ec_add32(*args, ctx),
+                  (3 * pt_words * S_k * w32, S_k * per_add * imad),
+                  {"path": path, "n": S_k, "packed": True})
         emit({"phase": "kernels_at", "path": path, "curve": cv.name,
               "msms": msms, "seconds": time.time() - t1})
 
@@ -795,11 +812,12 @@ def phase_kernels(device, n, seed, reps=5, r1cs_msm_n=4098, cv=None):
 
 
 def form_key(shape):
-    """A kernel-3 form case's shape without its path: two MSMs with equal
-    keys run the form on operands of the same shapes and index tables
-    (the window plan is fixed by the curve, c and the set count)."""
-    return json.dumps({k: v for k, v in shape.items() if k != "path"},
-                      sort_keys=True)
+    """A kernel-3 form case's shape without its path (and the merges its
+    random digits gave a pre-reduction case): two MSMs with equal keys run
+    the form on operands of the same shapes and index tables (the window
+    plan is fixed by the curve, c and the set count)."""
+    return json.dumps({k: v for k, v in shape.items()
+                       if k not in ("path", "merges")}, sort_keys=True)
 
 
 def max_abs_err(got, want):
@@ -1042,6 +1060,66 @@ def form_cases(ctx, proj, gen, device, paths):
                           {"form": "horner", "path": path, "sets": sets,
                            "wps": W // sets, "c": c}))
     return cases
+
+
+def pre_reduce_digits(W, n, gen):
+    """Digits (W, n) for a pre-reduction case: windows in turn all zeros,
+    mostly one digit (a run of ~0.8 n that every pass merges in) and
+    uniform in {0, .., 3} (short runs across 2^p boundaries)."""
+    d = torch.randint(0, 4, (W, n), generator=gen)
+    d[::3] = 0
+    d[1::3] = torch.where(torch.rand((len(range(1, W, 3)), n),
+                                     generator=gen) < 0.8, 1, 0)
+    return d
+
+
+def pre_reduce_case(ctx, proj, gen, device, path, digits, passes):
+    """The case of kernel 3's pre-reduction form over W x n entries of
+    `digits` (W, n), `passes` passes, rows from n projective points: the
+    bound counts the gather (n rows read, W*n written, perm, digits and
+    ranks read once) and the adds of the merging entries only, which this
+    run's digits give (`ek._merging`)."""
+    imad = imad_per_mont_mul(ctx)
+    nl = ctx.fp.L // 2
+    W, n = digits.shape
+    m = proj.shape[2]
+    sorted_d, rank, perm = (x.to(device)
+                            for x in msm_mod._sorted_ranks(digits))
+    pick = torch.randint(0, m, (n,), generator=gen).to(device)
+    rows32 = ek.proj_rows32(proj[:, :, pick])
+    merges = [int(ek._merging(sorted_d, rank, p).sum())
+              for p in range(passes)]
+    work = ((n + W * n) * 3 * nl * 4 + W * n * 3 * 8,
+            sum(merges) * mont_muls_per_add(ctx) * imad)
+
+    def bare(args):
+        rows, perm_, sd, rk, k = args
+        table = torch.empty((W * n, 3 * nl), dtype=torch.int32,
+                            device=device)
+
+        def run():
+            for p in range(k):
+                ek.ec_pre_reduce32(table, rows, perm_, sd, rk, p, ctx)
+        return run
+    return ("ec_add", ek.ec_pre_reduce, ek.ec_pre_reduce_plain,
+            (rows32, perm, sorted_d, rank, passes), bare, work,
+            {"form": "pre_reduce", "path": path, "W": W, "n": n,
+             "passes": passes, "merges": merges})
+
+
+def bitvector_pre_reduce(ctx, n, gen):
+    """The bit-vector MSM's pre-reduction at n: its digits (bits in
+    window 0, spread over the duplicate rows of `window_plan(dup=True)` at
+    c = pick_window(n)) and the passes `msm._escalate` gives them."""
+    c = msm_mod.pick_window(n)
+    ranges, splits, dup = msm_mod.window_plan(ctx, c, dup=True)
+    W = msm_mod._n_windows(ctx, c)
+    digits = torch.zeros((W, n), dtype=torch.int64)
+    digits[0] = torch.randint(0, 2, (n,), generator=gen)
+    digits = msm_mod._spread_dup_rows(digits, dup)
+    rounds = msm_mod.occupancy_guess(n, ctx, c)
+    _, _, occ = msm_mod._slot_grid(digits, 1 << c, rounds, ranges, splits)
+    return digits, msm_mod._escalate(occ, rounds, 0)[1]
 
 
 @functools.cache

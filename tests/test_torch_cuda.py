@@ -259,6 +259,90 @@ def test_sequential_form_matches_plain_on_card(form, curve, cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("curve", sorted(CURVES))
+@pytest.mark.parametrize("kind", ["bits", "runs"])
+def test_pre_reduce_form_matches_plain_on_card(kind, curve, cuda_device):
+    """Kernel 3's pre-reduction form (`ec_pre_reduce`) bit-exact against
+    its plain version, the whole (W*n, 3NL) table: the bit vector's 33
+    windows of n = 4095 entries (window 0 of bits, the rest all zeros), 7
+    passes; or short runs of {0, .., 3} across 2^p boundaries and a long
+    run to the row's last entry, 5 passes; one launch a pass, no pairwise
+    launch and no host synchronisation."""
+    cv = CURVES[curve]
+    ctx, _, _, proj, _, _ = _round_inputs(cv, 23, 64, 2, 3, cuda_device)
+    gen = torch.Generator().manual_seed(23)
+    W, n = 33, 4095
+    if kind == "bits":
+        d = torch.zeros((W, n), dtype=torch.int64)
+        d[0] = torch.randint(0, 2, (n,), generator=gen)
+        passes = 7
+    else:
+        d = torch.randint(0, 4, (W, n), generator=gen)
+        d[2] = torch.where(torch.rand(n, generator=gen) < 0.8, 5, 0)
+        passes = 5
+    sorted_d, rank, perm = (x.to(cuda_device) for x in M._sorted_ranks(d))
+    rows32 = ek.proj_rows32(unpack32(_packed_points(ctx, proj, n, 24,
+                                                    cuda_device), 1))
+    ek.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = ek.ec_pre_reduce(rows32, perm, sorted_d, rank, passes, ctx)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert ek.form_launches["pre_reduce"] == passes
+    assert ek.form_launches["pairwise"] == 0
+    assert torch.equal(got, ek.ec_pre_reduce_plain(rows32, perm, sorted_d,
+                                                   rank, passes, ctx))
+    # pass 0 copies rows 16 bytes at a time: a contiguous view that starts
+    # one word into its storage is refused, and nothing is launched
+    flat = torch.empty(rows32.numel() + 1, dtype=torch.int32,
+                       device=cuda_device)
+    shifted = flat[1:].view(rows32.shape)
+    shifted.copy_(rows32)
+    ek.reset_launches()
+    with pytest.raises(ValueError, match="16-byte"):
+        ek.ec_pre_reduce(shifted, perm, sorted_d, rank, passes, ctx)
+    assert ek.form_launches["pre_reduce"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("curve", sorted(CURVES))
+@pytest.mark.parametrize("form", ["rowcol", "split_fold", "gaps"])
+def test_gather_sum_matches_plain_on_card(form, curve, cuda_device):
+    """The bare gather-sum launch (4 groups of 4 lanes an output)
+    bit-exact against the plain version: the row and column sums of the
+    two-set MSM at c = 8 (2048 outputs of 16 columns, from the identity),
+    its split fold (from the first column), and the sums with -1 gaps (a
+    row of one column, a row of none, a row whose first column is
+    missing)."""
+    cv = CURVES[curve]
+    ctx, _, _, proj, _, _ = _round_inputs(cv, 25, 64, 2, 3, cuda_device)
+    ranges, splits, dup = M.window_plan(ctx, 8, n_sets=2, dup=True)
+    Wr = ranges.shape[0]
+    W = Wr - sum(g - 1 for _, g in dup)
+    if form == "split_fold":
+        idx = M._split_fold_index(Wr, 256, ranges[:, 0].tolist(),
+                                  splits[:, 0].tolist())
+        P32 = _packed_points(ctx, proj, Wr * 256, 26, cuda_device)
+    else:
+        idx = M._rowcol_index(W, 16, 16)
+        P32 = _packed_points(ctx, proj, W * 256, 27, cuda_device)
+        if form == "gaps":
+            idx[3, 1:] = -1
+            idx[5, :] = -1
+            idx[9, 0] = -1
+    idx = torch.as_tensor(idx, device=cuda_device)
+    first = form != "split_fold"
+    out = torch.empty((3, ctx.fp.L // 2, idx.shape[0]), dtype=torch.int32,
+                      device=cuda_device)
+    ek.ec_gather_sum32(out, P32, idx, first, ctx)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ek.ec_gather_sum_plain(P32, idx, first, ctx))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("curve", sorted(A0_CURVES))
 def test_bucket_rounds_mixed_table_on_card(curve, cuda_device):
     """Kernel 1 at the IPA MSM's S = 16896 slots, R_c = 16 rounds, from a

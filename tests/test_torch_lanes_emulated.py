@@ -14,9 +14,12 @@ So the kernels' arithmetic and control flow run here as written: RCB16
 algorithm 1 (a != 0, ed25519) in kernels 2, 3 (pairwise and every
 sequential form) and 4 and in the chain kernel, which a card runs only in
 a chip call, and, beside it, the a = 0 forms the card has run (BN254),
-which hold the stand-in to the card's results; and the lone chains'
+which hold the stand-in to the card's results; the lone chains'
 layout (a warp a chain, RCB16's dedicated doubling, the window totals'
-4 warps a window) on both.  Every comparison is exact.
+4 warps a window) on both; and kernel 3's pre-reduction form (a warp's
+ballot over a tile of entries, `__ffs`) and its gather-sum form (4
+groups of 4 lanes an output, `SplitLevels`) on both.
+Every comparison is exact.
 """
 
 import random
@@ -58,6 +61,7 @@ typedef void* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 #define __shared__ static
+struct uint4 { uint32_t x, y, z, w; };
 // A warp's barrier and its two sets of exchange slots.
 struct WarpState {
     std::barrier<>* bar;
@@ -77,6 +81,9 @@ inline unsigned long long* exchange(unsigned long long v) {
     return slots;
 }
 inline void __syncthreads() { block_barrier->arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) {
+    warp_state->bar->arrive_and_wait();
+}
 inline uint32_t __shfl_sync(unsigned, uint32_t v, int src, int w = 32) {
     const int l = lane_id();
     return (uint32_t)exchange(v)[(l & ~(w - 1)) + (src & (w - 1))];
@@ -93,6 +100,10 @@ inline uint32_t __shfl_up_sync(unsigned, uint32_t v, unsigned d,
     unsigned long long* s = exchange(v);
     return (l & (w - 1)) >= (int)d ? (uint32_t)s[l - d] : v;
 }
+inline uint32_t __shfl_xor_sync(unsigned, uint32_t v, int mask,
+                                int w = 32) {
+    return (uint32_t)exchange(v)[lane_id() ^ (mask & (w - 1))];
+}
 inline uint32_t __ballot_sync(unsigned, int p) {
     unsigned long long* s = exchange(p != 0);
     uint32_t b = 0;
@@ -101,6 +112,7 @@ inline uint32_t __ballot_sync(unsigned, int p) {
 }
 inline int __any_sync(unsigned m, int p) { return __ballot_sync(m, p) != 0; }
 inline int __clz(int x) { return x ? __builtin_clz(x) : 32; }
+inline int __ffs(int x) { return __builtin_ffs(x); }
 // The grid's blocks one after another, each block's threads all at once
 // (`__syncthreads` and the shared arrays are the block's).
 template <class... P, class... A>
@@ -164,12 +176,19 @@ inline uint32_t madc_hi_cc(uint32_t a, uint32_t b, uint32_t c) {
 # code and the output words.
 _MAIN = r"""
 #include <cstdio>
+#include <cstring>
 #include <string>
 static std::vector<uint32_t> arr() {
     long long n = 0;
     if (scanf("%lld", &n) != 1) exit(2);
     std::vector<uint32_t> v(n);
     for (auto& x : v) if (scanf("%u", &x) != 1) exit(2);
+    return v;
+}
+static std::vector<long long> arr64() {     // int64 as (low, high) words
+    auto w = arr();
+    std::vector<long long> v(w.size() / 2);
+    std::memcpy(v.data(), w.data(), v.size() * sizeof(long long));
     return v;
 }
 static int ints(int* v, int k) {
@@ -184,7 +203,7 @@ static void put(int rc, const std::vector<uint32_t>& out) {
 }
 int main() {
     char op[32];
-    int v[5];
+    int v[6];
     while (scanf("%31s", op) == 1) {
         const std::string o(op);
         if (o == "proj" || o == "mixed") {            // S R_c nl
@@ -217,6 +236,18 @@ int main() {
             put(bp_ec_gather_sum(out.data(), P.data(), idx.data(), v[0],
                                  v[1], v[2], v[3], nl, c.data(), nullptr),
                 out);
+        } else if (o == "pre_reduce") {               // W n passes nl
+            const int nl = ints(v, 4);
+            auto rows = arr();
+            auto perm = arr64(), d = arr64(), r = arr64();
+            auto c = arr();
+            std::vector<uint32_t> table((size_t)v[0] * v[1] * 3 * nl);
+            int rc = 0;
+            for (int p = 0; p < v[2] && rc == 0; p++)
+                rc = bp_ec_pre_reduce(table.data(), rows.data(),
+                                      perm.data(), d.data(), r.data(),
+                                      v[0], v[1], p, nl, c.data(), nullptr);
+            put(rc, table);
         } else if (o == "totals") {                   // W G Kc dbl nl
             const int nl = ints(v, 5);
             auto r = arr(), cs = arr(), c = arr();
@@ -267,7 +298,7 @@ def emulator(tmp_path_factory):
     for header in ("ec_common.cuh", "ec_lanes.cuh"):
         (d / header).write_text((CSRC / header).read_text())
     src = '#include "ec_lanes.cuh"\n'
-    for name, launches in (("ec_kernels.cu", 7), ("roofline_kernels.cu",
+    for name, launches in (("ec_kernels.cu", 8), ("roofline_kernels.cu",
                                                   5)):
         text = (CSRC / name).read_text()
         text = re.sub(r'#include "ec_(common|lanes)\.cuh"', "", text)
@@ -279,7 +310,7 @@ def emulator(tmp_path_factory):
         # one: its launchers take both forms here, by their a = 0 names
         text, n = re.subn("launch_field<kBuilt>",
                           "launch_field<Fields::kAll>", text)
-        assert n == (6 if name == "ec_kernels.cu" else 0), (name, n)
+        assert n == (7 if name == "ec_kernels.cu" else 0), (name, n)
         src += text
     (d / "kernels.cpp").write_text(src + _MAIN)
     subprocess.run([gxx, "-std=c++20", "-O1", "-pthread", "-w", "-I",
@@ -457,6 +488,84 @@ def test_lone_chains_match_plain_on_an_emulated_warp(emulator, curve, form):
         got = emulator("chain", [5, 3, R.CHAIN_FORMS.index(chain), nl], x,
                        consts)
     rc, words = got
+    assert rc == 0
+    np.testing.assert_array_equal(words.view(np.int32),
+                                  want.reshape(-1).numpy())
+
+
+def pre_reduce_input(ctx, points, gen, W=3, n=41):
+    """A pre-reduction's operands: (rows32 (n, 3NL), perm, sorted_d, rank)
+    from digits (W, n) whose window 0 is all zeros, window 1 draws from
+    {0, 1, 2, 3} (short runs that cross 2^p boundaries) and window 2 from
+    {0, 5} with 5 mostly (a long run ending at the row's last entry)."""
+    d = torch.randint(0, 4, (W, n), generator=gen)
+    d[0] = 0
+    d[2] = torch.where(torch.rand(n, generator=gen) < 0.8, 5, 0)
+    sorted_d, rank, perm = M._sorted_ranks(d)
+    return ek.proj_rows32(points(n)), perm, sorted_d, rank
+
+
+# the gather-sum cases are named for the form's 4 groups of 4 lanes an
+# output
+NEW_FORMS = ["pre_reduce", "gather_4", "gather_4_first", "gather_4_fold",
+             "gather_4_fold8", "gather_4_odd", "gather_4_long"]
+
+
+@pytest.mark.parametrize("curve", ["bn254", "ed25519"])
+@pytest.mark.parametrize("form", NEW_FORMS)
+def test_pre_reduce_and_sums_match_plain_on_an_emulated_warp(emulator,
+                                                             curve, form):
+    """Kernel 3's pre-reduction form and its gather-sum form, bit-exact
+    against their plain versions: the pre-reduction's 4
+    passes (the first writing the table from the rows by perm, the rest
+    in place; W = 3 windows of n = 41 entries, one all zeros, short runs
+    across 2^p boundaries, a long run to the row's end; a warp's tile
+    ballots its merging entries and adds them 8 at a time); the sums (4
+    groups of 4 lanes an output, 2 outputs a warp), from the identity and
+    from the first column, over the row and column index of W = 2,
+    G = K = 4 with a row of one column, a row of none and a row whose
+    first column is -1, over a fold's 2 columns and ed25519's split
+    fold's 8, over 7 of those rows (an odd count: the last warp's second
+    output is past the end), and over chains of 37 columns with gaps
+    (outputs of one warp taking different columns)."""
+    cv = config.CURVES[curve]
+    ctx, consts, points, gen = _inputs(cv, 13)
+    nl = ctx.fp.L // 2
+    if form == "pre_reduce":
+        rows32, perm, sorted_d, rank = pre_reduce_input(ctx, points, gen)
+        want = ek.ec_pre_reduce_plain(rows32, perm, sorted_d, rank, 4, ctx)
+        W, n = sorted_d.shape
+        rc, words = emulator("pre_reduce", [W, n, 4, nl], rows32,
+                             *(x.numpy().view(np.uint32)
+                               for x in (perm, sorted_d, rank)), consts)
+    else:
+        if form.endswith("fold"):
+            P = points(24)
+            idx = torch.as_tensor(np.stack([np.arange(12), 12 + np.arange(
+                12)], axis=1).astype(np.int32))
+            idx[4, 1] = -1
+        elif form.endswith("fold8"):
+            P = points(40)
+            idx = torch.as_tensor(np.arange(40, dtype=np.int32)
+                                  .reshape(5, 8))
+            idx[1, 3:] = -1
+        elif form.endswith("long"):
+            P = points(19)
+            idx = torch.as_tensor(np.random.default_rng(5).integers(
+                -1, 19, (6, 37)).astype(np.int32))
+        else:
+            P = points(32)
+            idx = torch.as_tensor(M._rowcol_index(2, 4, 4))
+            idx[3, 1:] = -1                   # a row of one column
+            idx[5, :] = -1                    # a row of none
+            idx[9, 0] = -1                    # the first column missing
+            if form.endswith("odd"):
+                idx = idx[1:8].contiguous()
+        first = not form.endswith("first")
+        want = ek.ec_gather_sum_plain(P, idx, first, ctx)
+        rc, words = emulator("gather", [idx.shape[0], idx.shape[1],
+                                        P.shape[2], int(first), nl],
+                             P, idx, consts)
     assert rc == 0
     np.testing.assert_array_equal(words.view(np.int32),
                                   want.reshape(-1).numpy())

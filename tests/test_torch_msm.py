@@ -246,6 +246,121 @@ def test_pre_reduced_table_is_the_packed_int64_table(curve):
     assert torch.equal(got, F.pack32(want, 1))
 
 
+def _pre_reduce_digits(kind, W, n, gen, ctx, seed):
+    """Digits (W, n) of one kind: "bits" (window 0 from bit scalars, every
+    other window all zeros), "runs" (window 0 all zeros, window 1 short
+    runs of {0, 1, 2, 3} that cross 2^p boundaries, window 2 a long run of
+    5 to the row's last entry), "uniform" (c = 4 digits of uniform
+    scalars)."""
+    if kind == "bits":
+        rnd = random.Random(seed)
+        ks = [rnd.randrange(2) for _ in range(n)]
+        d = F.get_digits(E.to_device_scalars(ks, ctx, "cpu"), 4,
+                         M._n_windows(ctx, 4))
+        return d[:W]
+    if kind == "uniform":
+        _, ks = _msm_input(n, seed, ctx.cv)
+        d = F.get_digits(E.to_device_scalars(ks, ctx, "cpu"), 4,
+                         M._n_windows(ctx, 4))
+        return d[:W]
+    d = torch.randint(0, 4, (W, n), generator=gen)
+    d[0] = 0
+    d[2] = torch.where(torch.rand(n, generator=gen) < 0.8, 5, 0)
+    return d
+
+
+def _jax_pre_reduced_table(points, sorted_d, rank, perm, jctx, passes):
+    """The JAX package's pass loop (`bulletproofs_tpu/ops/msm.py:325-357`,
+    in `bucket_accumulate`) on its `ec_add`, from the same sorted digits,
+    ranks and permutation: -> its (W*n, 3L) rows, numpy."""
+    @jax.jit
+    def run(points, sorted_d, rank, perm):
+        W, n = sorted_d.shape
+        L = points.shape[1]
+        rows = jnp.transpose(points, (2, 0, 1)).reshape(n, 3 * L)
+        P = jnp.transpose(rows[perm.reshape(-1)].reshape(W, n, 3, L),
+                          (2, 3, 0, 1))
+        id_col = jctx.identity.reshape(3, L, 1, 1)
+        for p in range(passes):
+            shift = 1 << p
+            d_next = jnp.concatenate(
+                [sorted_d[:, shift:], jnp.full((W, shift), -1, jnp.int32)],
+                axis=1)
+            P_next = jnp.concatenate(
+                [P[..., shift:], jnp.broadcast_to(id_col, (3, L, W, shift))],
+                axis=-1)
+            mergeable = ((rank & ((2 << p) - 1)) == 0) & \
+                (d_next == sorted_d) & (sorted_d != 0)
+            P = jnp.where(mergeable[None, None], ej.ec_add(P, P_next, jctx),
+                          P)
+        return jnp.transpose(P, (2, 3, 0, 1)).reshape(W * n, 3 * L)
+    return np.asarray(run(jnp.asarray(E.to_jax_points(points)),
+                          *(jnp.asarray(x.numpy(), jnp.int32)
+                            for x in (sorted_d, rank, perm))))
+
+
+@pytest.mark.parametrize("curve,kind,n,passes", [
+    ("bls381", "bits", 64, 5), ("bls381", "runs", 45, 4),
+    ("bn254", "runs", 45, 4), ("bn254", "uniform", 64, 2),
+    ("ed25519", "bits", 45, 5), ("ed25519", "runs", 45, 4)])
+def test_pre_reduce_form_is_the_pass_loop_and_jax(curve, kind, n, passes):
+    """Kernel 3's pre-reduction form (`ec_pre_reduce`; its plain version
+    adds only the merging pairs) and `_pre_reduce_rows`, which the MSM
+    calls, give the whole (W*n, 3NL) table of the pass loop over every
+    entry (`_pre_reduce_rows_int64`, packed) and of the JAX package's pass
+    loop, word for word: bit scalars (one window of nonzero digits, the
+    others all zeros), short runs across 2^p boundaries, a run to the
+    row's last entry, an all-zero window, uniform c = 4 digits, odd n, on
+    BLS12-381, BN254 and ed25519 (RCB16 algorithm 1).  Every pass merges
+    some pairs, each merge one entry of a nonzero digit into another."""
+    cv, jcv = config.CURVES[curve], jconfig.CURVES[curve]
+    ctx = E.CurveCtx(cv)
+    gen = torch.Generator().manual_seed(n + passes)
+    pts, _ = _msm_input(n, 40 + n, cv)
+    Pj, _, jctx = _jax_arrays(pts, [0] * n, jcv)
+    P = E.from_jax_points(Pj, "cpu")
+    digits = _pre_reduce_digits(kind, 3, n, gen, ctx, 50 + n)
+    sorted_d, rank, perm = M._sorted_ranks(digits)
+    rows32 = ek.proj_rows32(P)
+    got = ek.ec_pre_reduce(rows32, perm, sorted_d, rank, passes, ctx)
+    assert got.dtype == torch.int32 and got.shape == (3 * n, 3 * ctx.fp.L // 2)
+    assert torch.equal(got, M._pre_reduce_rows(P, sorted_d, rank, perm, ctx,
+                                               passes))
+    old = _pre_reduce_rows_int64(P, sorted_d, rank, perm, ctx, passes)
+    assert torch.equal(got, F.pack32(old, 1))
+    want = _jax_pre_reduced_table(P, sorted_d, rank, perm, jctx, passes)
+    np.testing.assert_array_equal(
+        F.unpack32(got, 1).numpy().astype(np.uint32), want)
+    merged = [int(ek._merging(sorted_d, rank, p).sum())
+              for p in range(passes)]
+    assert min(merged) > 0 and sum(merged) < int((digits != 0).sum())
+
+
+def test_pre_reducing_bucket_pass_matches_jax():
+    """A bit-vector bucket pass with 3 pre-reduction passes (n = 64,
+    c = 4: every point in bucket 1 of window 0) gives the JAX package's
+    pre-reducing `bucket_accumulate`'s buckets, limb for limb."""
+    cv, jcv = config.BN254, jconfig.BN254
+    ctx = E.CurveCtx(cv)
+    n, c, pre = 64, 4, 3
+    W = M._n_windows(ctx, c)
+    rnd = random.Random(61)
+    pts, _ = _msm_input(n, 62, cv)
+    ks = [rnd.randrange(2) for _ in range(n)]
+    P, s, jctx = _jax_arrays(pts, ks, jcv)
+    rounds = M.occupancy_guess(n, ctx, c)
+    plan = M.window_plan(ctx, c, dup=True)
+    digits = F.get_digits(E.from_jax_scalars(s, "cpu"), c, W)
+    got, occ = M.bucket_accumulate(E.from_jax_points(P, "cpu"), digits, ctx,
+                                   c, rounds, plan=plan, pre_reduce=pre)
+    want, jocc = jax.jit(lambda P, s: jmsm.bucket_accumulate(
+        P, fj.get_digits(s, c, W), jctx, c, rounds,
+        plan=jmsm.window_plan(jctx, c, dup=True), pre_reduce=pre))(P, s)
+    assert got is not None and occ == int(jocc)
+    np.testing.assert_array_equal(E.to_jax_points(F.unpack32(got, 1)),
+                                  np.asarray(want))
+
+
 def test_msm_hybrid_matches_host():
     """One uniform set (scalars 0, 1, r-1 included; mixed-add rounds) and
     then the same set beside a bit vector, which escalates to pre-reduction
@@ -331,15 +446,22 @@ def test_chip_smoke_phases_rehearse_on_cpu(capsys):
                                                    r1cs_msm_n=64)
     assert set(records) == set(chip_smoke.REPLACES)
     assert all(r["max_abs_err"] == 0 for r in records.values())
+    # phase 2 holds the pre-reduction form at the bit-vector MSM's shape
+    pre = [f for f in records["ec_add"]["forms"]
+           if f["shape"]["form"] == "pre_reduce"]
+    assert len(pre) == 1 and pre[0]["max_abs_err"] == 0
+    assert pre[0]["shape"]["passes"] > 0 and min(pre[0]["shape"]["merges"])
     # after a path: kernel 2 at a pre-reduced 3-set MSM's shape, kernel 1
-    # at a 1-set one's, with their combine forms
+    # at a 1-set one's, with their combine forms and the pre-reduction
     forms = len(records["ec_add"]["forms"])
     check_msms("smt", [(24, 3, 2, 4, 1), (24, 1, 2, 4, 0)])
     for name, sets in (("bucket_rounds_proj", 3), ("bucket_rounds_mixed", 1)):
         sub = records[name]["other_shapes"][-1]
         assert sub["shape"]["path"] == "smt" and sub["max_abs_err"] == 0
         assert sub["shape"]["sets"] == sets
-    assert len(records["ec_add"]["forms"]) == forms + 2 * 4
+    assert len(records["ec_add"]["forms"]) == forms + 2 * 4 + 1
+    assert records["ec_add"]["forms"][forms + 4]["shape"]["form"] == \
+        "pre_reduce"
     # the batch verifiers' `msm_device`: a projective table without
     # pre-reduction (kernel 2 from n rows), the Horner on the card
     check_msms("batch", [(24, 1, 2, 4, 0, False, True)])
@@ -349,7 +471,7 @@ def test_chip_smoke_phases_rehearse_on_cpu(capsys):
     assert records["ec_add"]["forms"][-1]["shape"]["form"] == "horner"
     # its folds, sums and totals have the smt path's 1-set shapes, checked
     # there: each form shape is checked once a run
-    assert len(records["ec_add"]["forms"]) == forms + 2 * 4 + 1
+    assert len(records["ec_add"]["forms"]) == forms + 2 * 4 + 2
     # a sharded pass (no duplicate rows): kernel 1 at its slots, the split
     # fold, sums and totals of its plan, and no duplicate-row fold
     check_msms("sharded", [(24, 2, 2, 4, 0, True, False, False)])
@@ -449,12 +571,12 @@ def test_max_occupancy_and_combine_buckets_match_jax(kind):
 
 def test_msm_calls_kernel3_a_few_times(monkeypatch):
     """`msm_hybrid` at n = 256 on the CPU calls kernel 3's wrappers (the
-    pairwise add and the sequential forms) at most 10 times: the split
+    pre-reduction and the sequential forms) at most 10 times: the split
     fold, the row and column sums and the window totals; `msm_device`
     adds the Horner.  Counted by wrapping the wrappers, since `launches`
     counts card launches only."""
     calls = []
-    for name in ("ec_add", "ec_gather_sum", "ec_window_totals",
+    for name in ("ec_pre_reduce", "ec_gather_sum", "ec_window_totals",
                  "ec_horner"):
         def counted(*a, _fn=getattr(M, name), _name=name, **k):
             calls.append(_name)
